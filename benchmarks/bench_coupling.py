@@ -1,20 +1,24 @@
-"""Coupling-tier roofline + fused-kernel A/B (VERDICT r3 next #1).
+"""Coupling-stack throughput and tensor-core roofline share.
 
-The coupling stack is the family users need for conditional structure
-(banana/funnel-class targets — infer.coupling_flow_template), and until
-round 4 it had no performance story: 34.7M evals/s f32 at the BASELINE
-config with zero analysis. This bench supplies:
+Configuration (the widest the repository has): d=64, 4 couplings with
+(512, 512) conditioners, 128K rows, affine and K=8 rational-quadratic
+spline couplings. For each stack:
 
-* an MXU FLOPs model for the conditioner MLPs (the stack's FLOPs are
-  entirely (batch, fan_in) @ (fan_in, fan_out) matmuls) and the measured
-  fraction-of-roof for the jnp/XLA path and the fused Pallas kernel
-  (ops/pallas/coupling.py);
-* an HBM activation-traffic model explaining WHERE the jnp path's gap
-  comes from (inter-layer (batch, hidden) round trips the fused kernel
-  eliminates);
-* honest A/Bs at the BASELINE config (d=64, 4 couplings, (512, 512)
-  conditioners, 128K batch) in f32 and bf16-conditioner modes, measured
-  with the interleaved-round slope stats of bench.py.
+* forward + ladj at the default matmul precision (float32 matmuls may run
+  in TF32 on the card), under ``jax.default_matmul_precision("float32")``,
+  and with bf16 conditioners (``compute_dtype="bfloat16"``);
+* the conditioner MLPs alone, compiled as a program of their own; the
+  forward's time minus theirs (``fwd_minus_conditioners_ms``) estimates
+  the rest (the affine or spline epilogue, slicing, concatenation), as a
+  difference of two programs and not a span read from a trace;
+* one whitening train step (loss, gradient, optimizer update).
+
+The stack is ``benchmarks.harness.build_coupling``, the one
+``chip_smoke.py`` checks. The conditioner FLOP model below counts the
+matmuls only; shares divide by the peaks in ``benchmarks/harness.py``: TF32
+for the default rows, FP32 for the float32 rows (no tensor cores), bf16 for
+the bf16 rows. Prints one line per row with the card's name and power
+limit, and one JSON object last.
 
 Run: python benchmarks/bench_coupling.py
 """
@@ -27,221 +31,104 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from enflows_tpu.utils.compilation_cache import \
-    enable_persistent_compilation_cache
+    enable_persistent_compilation_cache  # noqa: E402
 
 enable_persistent_compilation_cache()
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
 
-import enflows_tpu as ef
-from enflows_tpu.bijectors import coupling_stack
-from enflows_tpu.ops.pallas.coupling import (
-    fused_coupling_forward_and_ladj, is_fusible_coupling_stack)
-
-from bench import slope_stats
-
-# v5e peaks (datasheet): bf16 MXU 197 TFLOP/s; HBM 819 GB/s (measured
-# copy roof on this chip: 690 GB/s, BASELINE.md roofline table).
-BF16_TFLOPS = 197e12
-HBM_GBPS = 690e9
+from benchmarks.harness import (build_coupling, card_info,  # noqa: E402
+                                compile_and_time, device_summary, peaks)
+from enflows_tpu.bijectors import (AffineCoupling,  # noqa: E402
+                                   RQSplineCoupling)
+from enflows_tpu.train import make_train_step  # noqa: E402
 
 DIM = 64
 HIDDEN = (512, 512)
 N_LAYERS = 4
-BATCH = 1 << 17
-
-
-def flops_per_sample(dim=DIM, hidden=HIDDEN, n_layers=N_LAYERS):
-    d_a = dim // 2
-    sizes = (d_a,) + tuple(hidden) + (dim,)
-    per_coupling = sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    return per_coupling * n_layers
-
-
-def hbm_bytes_per_sample_unfused(dim=DIM, hidden=HIDDEN,
-                                 n_layers=N_LAYERS, itemsize=4):
-    """Model of the jnp path's activation traffic: x in + y out + every
-    inter-layer hidden written and re-read once per coupling (weights
-    amortize to ~0 at large batch)."""
-    hidden_rt = sum(2 * h for h in hidden)       # write + read each h
-    per_coupling = hidden_rt + 2 * dim           # + (s,t) out, x_a reread
-    return (2 * dim + n_layers * per_coupling) * itemsize
-
-
-def build(compute_dtype=None):
-    key = jax.random.PRNGKey(0)
-    stack = coupling_stack(key, DIM, n_layers=N_LAYERS, hidden=HIDDEN,
-                           compute_dtype=compute_dtype)
-    # Perturb off the identity so nothing folds away.
-    return jax.tree.map(
-        lambda p: p + 0.03 * jax.random.normal(
-            jax.random.PRNGKey(p.size % 101), p.shape, p.dtype), stack)
-
-
 N_BINS = 8
+BATCH = 1 << 17
+ITERS = 10
+PEAK_NAME = {"default": "TF32", "float32": "FP32", "bf16_conditioner": "bf16"}
 
 
-def spline_flops_per_sample(dim=DIM, hidden=HIDDEN, n_layers=N_LAYERS,
-                            n_bins=N_BINS):
-    """Conditioner MXU FLOPs for the RQ-spline stack: same hiddens, but the
-    output layer fans out to d_b * (3K - 1) spline params per coupling.
-    The spline epilogue itself is ~(6K + 30) VPU ops per transformed
-    element — negligible against the matmuls at these widths."""
+def flops_per_sample(kind, dim=DIM, hidden=HIDDEN, n_layers=N_LAYERS,
+                     n_bins=N_BINS):
+    """Conditioner matmul FLOPs per sample: (d_a -> hidden... -> out) per
+    coupling, out = 2 d_b (affine) or d_b (3K - 1) (spline)."""
     d_a = dim // 2
-    sizes = (d_a,) + tuple(hidden) + ((dim - d_a) * (3 * n_bins - 1),)
-    per_coupling = sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    return per_coupling * n_layers
+    out = 2 * (dim - d_a) if kind == "affine" else \
+        (dim - d_a) * (3 * n_bins - 1)
+    sizes = (d_a,) + tuple(hidden) + (out,)
+    return n_layers * sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
-def build_spline(compute_dtype=None):
-    from enflows_tpu.bijectors import spline_coupling_stack
-    key = jax.random.PRNGKey(0)
-    stack = spline_coupling_stack(key, DIM, n_layers=N_LAYERS,
-                                  hidden=HIDDEN, n_bins=N_BINS,
-                                  compute_dtype=compute_dtype)
-    return jax.tree.map(
-        lambda p: p + 0.03 * jax.random.normal(
-            jax.random.PRNGKey(p.size % 101), p.shape, p.dtype), stack)
+def _fwd(stack, x):
+    return stack.forward_and_ladj(x)
 
 
-def measure(stack, x, label, fused: bool, fps: float | None = None):
-    def body(u):
-        if fused:
-            y, ladj = fused_coupling_forward_and_ladj(
-                stack, u, physical_order=True)
-        else:
-            y, ladj = stack.forward_and_ladj(u)
-        # DCE-proof fold of BOTH outputs (bench.py discipline).
-        return y * 0.1 + 1e-12 * jnp.sum(ladj)
-
-    st = slope_stats(body, x)
-    evals = BATCH / st["median"]
-    tf = evals * (fps if fps is not None else flops_per_sample()) / 1e12
-    frac = tf * 1e12 / BF16_TFLOPS
-    print(f"[coupling] {label}: median {st['median']*1e3:.3f} ms -> "
-          f"{evals/1e6:.1f}M evals/s = {tf:.1f} TFLOP/s "
-          f"({100*frac:.0f}% of bf16 MXU roof; spread "
-          f"{st['spread']:.2f}x)", file=sys.stderr)
-    return {"evals_per_s": round(evals), "tflops": round(tf, 1),
-            "frac_of_bf16_roof": round(frac, 3),
-            "n_runs": st["n_runs"], "spread": round(st["spread"], 2)}
+def _conditioners(stack, x):
+    """Every coupling's conditioner on the leading split of x."""
+    out = []
+    for s in stack.stages:
+        if isinstance(s, (AffineCoupling, RQSplineCoupling)):
+            out.append(s.conditioner(x[..., : s.split]))
+    return out
 
 
 def main():
-    x = jax.random.normal(jax.random.PRNGKey(1), (BATCH, DIM),
-                          jnp.float32)
-    fps = flops_per_sample()
-    unfused_bytes = hbm_bytes_per_sample_unfused()
-    fused_bytes = 2 * DIM * 4
-    print(f"[coupling] model: {fps/1e6:.2f} MFLOP/sample; roofs at this "
-          f"config — MXU(bf16): {BF16_TFLOPS/fps/1e6:.0f}M evals/s; "
-          f"HBM if hiddens round-trip (jnp): "
-          f"{HBM_GBPS/unfused_bytes/1e6:.0f}M evals/s; HBM fused (x+y "
-          f"only): {HBM_GBPS/fused_bytes/1e6:.0f}M evals/s",
-          file=sys.stderr)
-
-    stack = build()
-    assert is_fusible_coupling_stack(stack, DIM)
-    out = {
-        "config": {"dim": DIM, "hidden": list(HIDDEN),
-                   "n_layers": N_LAYERS, "batch": BATCH,
-                   "mflops_per_sample": round(fps / 1e6, 2)},
-        "jnp_f32": measure(stack, x, "jnp f32", fused=False),
-        "fused_f32": measure(stack, x, "fused f32", fused=True),
-    }
-    out["fused_speedup_f32"] = round(
-        out["fused_f32"]["evals_per_s"]
-        / out["jnp_f32"]["evals_per_s"], 2)
-
-    stack16 = build(compute_dtype="bfloat16")
-    out["jnp_bf16"] = measure(stack16, x, "jnp bf16-conditioner",
-                              fused=False)
-    out["fused_bf16"] = measure(stack16, x, "fused bf16-conditioner",
-                                fused=True)
-    out["fused_speedup_bf16"] = round(
-        out["fused_bf16"]["evals_per_s"]
-        / out["jnp_bf16"]["evals_per_s"], 2)
-
-    # --- RQ-spline coupling stack (bijectors/spline.py), XLA path ---
-    sfps = spline_flops_per_sample()
-    print(f"[coupling] spline model: {sfps/1e6:.2f} MFLOP/sample "
-          f"(n_bins={N_BINS}; {sfps/fps:.2f}x the affine stack's FLOPs); "
-          f"MXU(bf16) roof {BF16_TFLOPS/sfps/1e6:.0f}M evals/s",
-          file=sys.stderr)
-    spl = build_spline()
-    out["spline_config"] = {"n_bins": N_BINS,
-                            "mflops_per_sample": round(sfps / 1e6, 2)}
-    out["spline_jnp_f32"] = measure(spl, x, "spline jnp f32",
-                                    fused=False, fps=sfps)
-    out["spline_fused_f32"] = measure(spl, x, "spline fused f32",
-                                      fused=True, fps=sfps)
-    spl16 = build_spline(compute_dtype="bfloat16")
-    out["spline_jnp_bf16"] = measure(spl16, x, "spline jnp bf16-cond",
-                                     fused=False, fps=sfps)
-    out["spline_fused_bf16"] = measure(spl16, x, "spline fused bf16-cond",
-                                       fused=True, fps=sfps)
-    out["spline_fused_speedup_f32"] = round(
-        out["spline_fused_f32"]["evals_per_s"]
-        / out["spline_jnp_f32"]["evals_per_s"], 2)
-    out["spline_fused_speedup_bf16"] = round(
-        out["spline_fused_bf16"]["evals_per_s"]
-        / out["spline_jnp_bf16"]["evals_per_s"], 2)
-    out["spline_vs_affine_cost"] = round(
-        out["jnp_f32"]["evals_per_s"]
-        / out["spline_jnp_f32"]["evals_per_s"], 2)
-
-    # --- TRAIN-step A/B (VERDICT r4 next #2): full loss+grad+update ---
-    # The fused forward's custom-vjp backward re-runs the FULL jnp
-    # forward (ops/pallas/coupling.py _fused_coupling_bwd), so the fused
-    # train step costs pallas-fwd + jnp-fwd + jnp-bwd vs the std path's
-    # jnp-fwd + jnp-bwd. These rows measure that tax directly; the
-    # trainers' auto-dispatch follows THESE numbers, not the fwd-only
-    # rows above.
-    import optax
-    from enflows_tpu.train.whitening import (mvnormal_negll,
-                                             mvnormal_negll_coupling)
-
-    def train_ab(stack, x, label):
+    card = card_info()
+    dev = device_summary()
+    pk = peaks(dev["kind"])
+    print(f"card: {card}; device_kind {dev['kind']}; peaks from "
+          f"{pk['source']}", flush=True)
+    x = jax.random.normal(jax.random.PRNGKey(1), (BATCH, DIM), jnp.float32)
+    result = {"card": card, "device": dev,
+              "config": {"dim": DIM, "hidden": list(HIDDEN),
+                         "n_layers": N_LAYERS, "n_bins": N_BINS,
+                         "batch": BATCH}}
+    for kind in ("affine", "spline"):
+        fps = flops_per_sample(kind)
+        rows = {"mflops_per_sample": fps / 1e6}
+        shape = (kind, DIM, N_LAYERS, HIDDEN, N_BINS)
+        stack = build_coupling(*shape)
+        for label, precision, stk, peak in [
+                ("default", None, stack, pk["tf32_flops"]),
+                ("float32", "float32", stack, pk["fp32_flops"]),
+                ("bf16_conditioner", None,
+                 build_coupling(*shape, compute_dtype="bfloat16"),
+                 pk["bf16_flops"])]:
+            with jax.default_matmul_precision(precision):
+                _, _, t = compile_and_time(_fwd, stk, x, iters=ITERS)
+                _, _, t_c = compile_and_time(_conditioners, stk, x,
+                                             iters=ITERS)
+            rate = BATCH * fps / t
+            rows[label] = {"fwd_ms": t * 1e3,
+                           "conditioners_ms": t_c * 1e3,
+                           "fwd_minus_conditioners_ms": (t - t_c) * 1e3,
+                           "evals_per_s": BATCH / t,
+                           "tflops": rate / 1e12,
+                           "peak_share": rate / peak}
+            print(f"[coupling] {kind} {label}: fwd {t*1e3:.3f} ms "
+                  f"({BATCH/t/1e6:.2f}M evals/s, {rate/1e12:.1f} TFLOP/s = "
+                  f"{100*rate/peak:.1f}% of the "
+                  f"{PEAK_NAME[label]} peak) | conditioner-only program "
+                  f"{t_c*1e3:.3f} ms, forward minus it "
+                  f"{(t-t_c)*1e3:.3f} ms | card: {card}", flush=True)
         opt = optax.adam(1e-6)
-
-        def make_body(loss_fn):
-            def body(carry):
-                flow, opt_state = carry
-                loss, grads = jax.value_and_grad(loss_fn)(flow, x)
-                updates, opt_state = opt.update(grads, opt_state, flow)
-                flow = optax.apply_updates(flow, updates).canonicalize()
-                return (flow, opt_state)
-            return body
-
-        carry = (stack, opt.init(stack))
-        n = x.shape[0]
-        st_std = slope_stats(make_body(mvnormal_negll), carry, k_hi=16)
-        st_fus = slope_stats(make_body(mvnormal_negll_coupling), carry,
-                             k_hi=16)
-        ratio = st_std["median"] / st_fus["median"]
-        print(f"[coupling] TRAIN {label}: std {st_std['median']*1e3:.2f} "
-              f"ms ({n/st_std['median']/1e6:.1f}M samples/s, spread "
-              f"{st_std['spread']:.2f}x) | fused "
-              f"{st_fus['median']*1e3:.2f} ms "
-              f"({n/st_fus['median']/1e6:.1f}M samples/s, spread "
-              f"{st_fus['spread']:.2f}x) -> fused is {ratio:.2f}x",
-              file=sys.stderr)
-        return {"std_samples_per_s": round(n / st_std["median"]),
-                "fused_samples_per_s": round(n / st_fus["median"]),
-                "fused_over_std": round(ratio, 2),
-                "spread_std": round(st_std["spread"], 2),
-                "spread_fused": round(st_fus["spread"], 2)}
-
-    x16k = x[:256]            # the old 16K-element dispatch threshold
-    out["train_affine_128k"] = train_ab(stack, x, "affine 128K")
-    out["train_affine_16k_elems"] = train_ab(stack, x16k,
-                                             "affine 256 rows")
-    out["train_spline_128k"] = train_ab(spl, x, "spline 128K")
-    out["train_spline_16k_elems"] = train_ab(spl, x16k,
-                                             "spline 256 rows")
-    print(json.dumps(out))
+        _, _, t_tr = compile_and_time(make_train_step(opt),
+                                      (stack, opt.init(stack)), x,
+                                      iters=ITERS)
+        rows["train_step_ms"] = t_tr * 1e3
+        rows["train_samples_per_s"] = BATCH / t_tr
+        print(f"[coupling] {kind} train step (default precision): "
+              f"{t_tr*1e3:.3f} ms ({BATCH/t_tr/1e6:.2f}M samples/s, "
+              f"{100*3*BATCH*fps/t_tr/pk['tf32_flops']:.1f}% of the TF32 "
+              f"peak at 3x forward FLOPs) | card: {card}", flush=True)
+        result[kind] = rows
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

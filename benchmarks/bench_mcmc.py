@@ -1,5 +1,5 @@
 """MCMC benchmarks: ESS/s for NUTS on the 2D example target, and raw
-leapfrog+log-prob throughput (BASELINE.md metric rows).
+leapfrog+log-prob throughput.
 
 The "2D example target" is the pushforward density of the reference's 2D
 example flow (nf_example_2d.jl ground truth) — i.e. NUTS samples the
@@ -244,55 +244,8 @@ def bench_lockstep_tax(num_chains=128, num_warmup=400, num_samples=600):
     return results
 
 
-def bench_fused_nuts(num_chains=128, dim=50, num_warmup=300,
-                     num_samples=500):
-    """Fused-gradient NUTS A/B (VERDICT r3 next #4, second half): on a
-    fusible FlowPushforwardTarget, NUTS leaf gradients route through one
-    packed Pallas forward+backward per leapfrog step for all chains
-    (FlowPushforwardTarget.batched_value_and_grad custom_vmap) instead of
-    an XLA chain per leaf. Compare against the same target sampled as an
-    opaque callable (the standard path)."""
-    from enflows_tpu.mcmc import FlowPushforwardTarget
-
-    v = lambda val: jnp.full((dim,), val, jnp.float32)
-    transport = ef.compose(
-        ef.ScaleShift(a=1.0 + 0.5 * jax.random.uniform(
-            jax.random.PRNGKey(0), (dim,), jnp.float32), b=v(0.3)),
-        ef.invert(ef.Johnson(gamma=v(0.0), delta=v(5.0), xi=v(0.0),
-                             lam=v(5.0))),
-        ef.invert(ef.CenterStretch(a=v(0.2), b=v(1.5), c=v(0.0))),
-    )
-    target = FlowPushforwardTarget(transport)
-    assert target.fused_kernel_available(dim)
-    opaque = lambda q: target(q)       # hides the structure -> std path
-
-    def run(logp, seed):
-        t0 = time.time()
-        s, _, st = sample(logp, jax.random.PRNGKey(seed), dim=dim,
-                          num_chains=num_chains, num_warmup=num_warmup,
-                          num_samples=num_samples, dtype=jnp.float32)
-        jax.block_until_ready(s)
-        return time.time() - t0, s, st
-
-    run(target, 0)                     # compile
-    t_fused, s_f, st_f = run(target, 1)
-    run(opaque, 0)
-    t_std, s_s, st_s = run(opaque, 1)
-    grads = float(np.asarray(st_f.num_steps, np.float64).max(1).sum()
-                  * num_chains)
-    ess_f = float(ess_per_dim(s_f).min())
-    ess_s = float(ess_per_dim(s_s).min())
-    print(f"[fused-nuts] {num_chains} chains x {dim}D fusible target: "
-          f"std {t_std:.2f}s ({ess_s/t_std:.0f} min-ESS/s) | fused-vg "
-          f"{t_fused:.2f}s ({ess_f/t_fused:.0f} min-ESS/s, "
-          f"{t_std/t_fused:.2f}x wall)", file=sys.stderr)
-    return {"speedup_wall": round(t_std / t_fused, 2),
-            "min_ess_per_s_std": round(ess_s / t_std, 1),
-            "min_ess_per_s_fused": round(ess_f / t_fused, 1)}
-
-
 def bench_leapfrog(num_chains=8192, dim=50, num_steps=64, iters=20):
-    """Raw per-chip leapfrog+log-prob throughput on a 50D Gaussian."""
+    """Raw per-device leapfrog+log-prob throughput on a 50D Gaussian."""
     prec = jnp.eye(dim, dtype=jnp.float32)
 
     def logp(q):
@@ -324,13 +277,10 @@ def bench_leapfrog(num_chains=8192, dim=50, num_steps=64, iters=20):
     return steps_per_s
 
 
-def bench_fused_leapfrog(num_chains=8192, dim=50, num_steps=64, iters=20):
-    """Fused leapfrog+logprob Pallas kernel vs the jnp scan path on the
-    SAME fusible-chain log density (flow-preconditioned structure) —
-    SURVEY §7 M5 / the round-1 roofline review's optimization candidate."""
-    from enflows_tpu.ops.pallas.leapfrog import fused_leapfrog
-    import time as _t
-
+def bench_flow_leapfrog(num_chains=8192, dim=50, num_steps=64, iters=20):
+    """Leapfrog+logprob throughput of the plain path on a flow-pushforward
+    log density (Johnson, center-contract and a Householder rotation at
+    d=50): the rate a fused trajectory kernel would have to beat."""
     v = lambda val: jnp.full((dim,), val, jnp.float32)
     chain = ef.compose(
         ef.Johnson(gamma=v(0.0), delta=v(5.0), xi=v(0.0), lam=v(5.0)),
@@ -351,33 +301,23 @@ def bench_fused_leapfrog(num_chains=8192, dim=50, num_steps=64, iters=20):
     inv_mass = jnp.ones(dim)
 
     @jax.jit
-    def run_jnp(q, p, g):
+    def run(q, p, g):
         return jax.vmap(
             lambda q, p, g: leapfrog(vg, q, p, g, 0.05, inv_mass,
                                      num_steps))(q, p, g)
 
-    @jax.jit
-    def run_fused(q, p):
-        return fused_leapfrog(chain, q, p, 0.05, num_steps)
-
-    def timeit(f, *a):
-        out = f(*a)
-        jax.block_until_ready(out)
-        t0 = _t.perf_counter()
-        for _ in range(iters):
-            out = f(*a)
-        jax.block_until_ready(out)
-        return (_t.perf_counter() - t0) / iters
-
-    dt_jnp = timeit(run_jnp, q, p, g)
-    dt_fused = timeit(run_fused, q, p)
-    sps_jnp = num_chains * num_steps / dt_jnp
-    sps_fused = num_chains * num_steps / dt_fused
-    print(f"[fused-leapfrog] {num_chains} x {num_steps} x {dim}D flow "
-          f"chain: jnp {dt_jnp*1e3:.2f} ms ({sps_jnp/1e6:.1f}M steps/s) | "
-          f"fused {dt_fused*1e3:.2f} ms ({sps_fused/1e6:.1f}M steps/s, "
-          f"{dt_jnp/dt_fused:.2f}x)", file=sys.stderr)
-    return sps_fused, dt_jnp / dt_fused
+    out = run(q, p, g)
+    jax.block_until_ready(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = run(q, p, g)
+    jax.block_until_ready(out)
+    dt = (time.perf_counter() - t0) / iters
+    sps = num_chains * num_steps / dt
+    print(f"[flow-leapfrog] {num_chains} x {num_steps} x {dim}D flow "
+          f"chain: {dt*1e3:.2f} ms ({sps/1e6:.1f}M steps/s)",
+          file=sys.stderr)
+    return sps
 
 
 def main():
@@ -389,9 +329,8 @@ def main():
     st_chees, chees_epk = bench_chees(args.chains)
     st_pre = bench_preconditioned(args.chains)
     lockstep = bench_lockstep_tax(args.chains)
-    fused_nuts = bench_fused_nuts(args.chains)
     lf = bench_leapfrog()
-    lf_fused, fused_speedup = bench_fused_leapfrog()
+    lf_flow = bench_flow_leapfrog()
     # Decompose the ChEES-vs-NUTS ESS/s headline (VERDICT r3 weak #4):
     # algorithm (ESS per algorithmic gradient) x lockstep (NUTS's paid/
     # used gradient factor) x rate. chees has zero lockstep waste (every
@@ -403,7 +342,6 @@ def main():
         "chees_raw_min_ess_per_s": st_chees,
         "nuts_precond_min_ess_per_s": st_pre,
         "nuts_lockstep": lockstep,
-        "fused_nuts": fused_nuts,
         "chees_ess_per_kgrad": round(chees_epk, 3),
         "chees_vs_nuts_ess_per_s": round(
             st_chees["median"] / st_raw["median"], 1),
@@ -412,8 +350,7 @@ def main():
         "chees_vs_nuts_ess_per_grad_paid": round(
             chees_epk / nuts_epk_paid, 2) if nuts_epk_paid else None,
         "leapfrog_steps_per_s": round(lf),
-        "fused_flow_leapfrog_steps_per_s": round(lf_fused),
-        "fused_leapfrog_speedup_vs_jnp": round(fused_speedup, 2),
+        "flow_leapfrog_steps_per_s": round(lf_flow),
     }))
 
 

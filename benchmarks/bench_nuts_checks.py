@@ -6,7 +6,6 @@ hard), a banana, and a 50D correlated Gaussian — the gate for VERDICT r1
 weak #3 / next-step #7: the checks must be ESS/grad equal-or-better.
 
 Run: python benchmarks/bench_nuts_checks.py [--cpu]
-Results recorded in BASELINE.md ("NUTS merge-boundary checks" row).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Generated API reference: dependency-free autodocs over docstrings.
 
 The reference ships a Documenter.jl autodocs site built from docstrings
-(/root/reference/docs/make.jl:10-25). This is its TPU-repo equivalent: no
+(/root/reference/docs/make.jl:10-25). This is its equivalent here: no
 sphinx/mkdocs in the image, so a small inspector walks the public package
 surface and emits one markdown page per module under docs/api/ plus an
 index — every signature and docstring in the library, generated, not
@@ -37,7 +37,6 @@ MODULES = [
     "enflows_tpu.mcmc.chees",
     "enflows_tpu.mcmc.adaptation",
     "enflows_tpu.mcmc.sample",
-    "enflows_tpu.mcmc.fused_hmc",
     "enflows_tpu.mcmc.diagnostics",
     "enflows_tpu.smc.smc",
     "enflows_tpu.smc.flow_transport",
@@ -47,9 +46,6 @@ MODULES = [
     "enflows_tpu.parallel.mcmc_sharded",
     "enflows_tpu.parallel.smc_sharded",
     "enflows_tpu.parallel.event_sharded",
-    "enflows_tpu.ops.pallas.elementwise",
-    "enflows_tpu.ops.pallas.coupling",
-    "enflows_tpu.ops.pallas.leapfrog",
     "enflows_tpu.infer",
     "enflows_tpu.utils.pytree",
     "enflows_tpu.utils.checkpoint",

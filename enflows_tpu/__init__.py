@@ -1,31 +1,13 @@
-"""enflows_tpu: a TPU-native probabilistic-inference engine.
+"""enflows_tpu: a JAX probabilistic-inference engine.
 
-Brand-new JAX/XLA/Pallas framework with the capabilities of
+A JAX/XLA framework with the capabilities of
 bat/EuclidianNormalizingFlows.jl (reference mounted at /root/reference —
 studied for behavior, not translated): a composable trainable-bijector
 algebra with analytic log-abs-det-Jacobians and exact parameter-sharing
 inverses, maximum-likelihood whitening and flow-VI trainers, flow-
 preconditioned HMC/NUTS with windowed warmup, tempered SMC with learned
-annealing transports, and multi-chip sharding over `jax.sharding.Mesh`.
+annealing transports, and multi-device sharding over `jax.sharding.Mesh`.
 """
-
-import os as _os
-
-import jax as _jax
-
-# Persistent compilation cache: NUTS/SMC scans take minutes to compile on
-# TPU (remote AOT); caching makes every later process start warm. Opt out
-# with ENFLOWS_NO_COMPILE_CACHE=1.
-if not _os.environ.get("ENFLOWS_NO_COMPILE_CACHE"):
-    try:
-        _cache_dir = _os.environ.get(
-            "ENFLOWS_COMPILE_CACHE",
-            _os.path.expanduser("~/.cache/enflows_jax_cache"))
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                           2.0)
-    except Exception:
-        pass
 
 from . import bijectors, distributions
 

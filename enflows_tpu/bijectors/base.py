@@ -1,6 +1,6 @@
 """Bijector protocol: composable trainable transforms with analytic ladjs.
 
-TPU-native redesign of the reference's bijector algebra
+Redesign of the reference's bijector algebra
 (/root/reference/src/abstract_trafo.jl, and the InverseFunctions /
 ChangesOfVariables protocols it extends — see SURVEY.md §1). Key contracts
 preserved from the reference:
@@ -102,7 +102,7 @@ class Identity(Bijector):
 class Chain(Bijector):
     """Composition of bijectors, applied ``stages[0]`` first.
 
-    The TPU-native replacement for Julia ``Base.∘`` over ``Function``
+    The replacement for Julia ``Base.∘`` over ``Function``
     subtypes (reference convention #3, SURVEY.md §1): ladjs accumulate
     per-sample across stages (/root/reference call stack §3.2), and
     ``inverse`` reverses stage order with each stage inverted

@@ -1,6 +1,6 @@
 """CenterStretch / CenterContract: smooth move-mass-from/toward-center pair.
 
-TPU-native counterpart of /root/reference/src/center_stretch.jl. The
+Counterpart of /root/reference/src/center_stretch.jl. The
 *contract* direction is a double-softplus
 
     y = (softplus(b*(x - c - a)) - softplus(-b*(x - c + a))) / b
@@ -123,9 +123,8 @@ class CenterStretch(Bijector):
         # Same convention-#6 value as -contract_ladj(y) but computed by
         # sharing the forward's em/denom intermediates (the e^{ab}
         # factors cancel into ae = 2 em/denom), so the whole fwd+ladj is
-        # 1 exp + 2 log + 1 sqrt per element — the kernel's round-3
-        # derivation (ops/pallas/elementwise._apply_center_stretch).
-        # Assumes a*b >= 0 (module doc); f64 takes the high-precision
+        # 1 exp + 2 log + 1 sqrt per element (the round-3 single-exp
+        # derivation). Assumes a*b >= 0 (module doc); f64 takes the high-precision
         # log-domain path.
         if jnp.result_type(x, self.a, self.b, self.c) == jnp.float64:
             y = _center_stretch_logdomain(x, self.a, self.b, self.c)

@@ -9,11 +9,11 @@ are the canonical way normalizing-flow frameworks express learnable
 (SURVEY.md §1): analytic AD-free ladj (convention #4), an exact
 parameter-sharing inverse (convention #5), and per-sample ladj vectors.
 
-TPU-native design notes:
+Design notes:
 
 * The conditioner is a dense MLP — all FLOPs are ``(batch, d_a) @ (d_a, h)``
-  matmuls that tile straight onto the MXU; no gathers, no masks in the hot
-  path. The event split is a static *contiguous* slice (``x[..., :d_a]`` /
+  matmuls that XLA hands to the GPU's GEMM library; no gathers, no masks in
+  the hot path. The event split is a static *contiguous* slice (``x[..., :d_a]`` /
   ``x[..., d_a:]``), so XLA sees fixed shapes and zero relayout; alternation
   between layers is done by composing with :class:`Permute` (a static
   permutation, free at trace time for small event dims).
@@ -49,11 +49,13 @@ class MLPConditioner:  # plain callable pytree, not a Bijector
     """Dense MLP ``(..., d_in) -> (..., d_out)``; weights are pytree leaves.
 
     ``layers`` is a tuple of ``(W, b)`` pairs with ``W: (fan_in, fan_out)``
-    — batch-major matmuls that map directly onto the MXU.
+    — batch-major matmuls, no transposes.
 
-    ``compute_dtype='bfloat16'`` runs the matmuls in bf16 (the MXU's native
-    rate, ~2x f32 throughput) while parameters and the output stay in the
-    parameter dtype. This is SAFE for invertibility: the coupling inverse
+    Precision: float32 matmuls run at JAX's default matmul precision,
+    which on an NVIDIA GPU lets the tensor cores compute them in TF32;
+    wrap a call in ``jax.default_matmul_precision("float32")`` for full
+    float32 products. ``compute_dtype='bfloat16'`` runs the matmuls in bf16
+    while parameters and the output stay in the parameter dtype. This is SAFE for invertibility: the coupling inverse
     recomputes the *same* conditioner on the untouched half, so forward and
     inverse see bit-identical (s, t) and the round trip stays exact — lower
     precision only perturbs *which* bijection is represented, never breaks

@@ -1,6 +1,6 @@
 """Householder reflection chains: exact orthogonal (rotation) bijectors.
 
-TPU-native redesign of /root/reference/src/householder_trafo.jl. A single
+Redesign of /root/reference/src/householder_trafo.jl. A single
 reflection is ``y = x - 2 v (v.x)/(v.v)`` (reference :8-11); a chain applies
 ``k`` reflections in sequence. The log-abs-det-Jacobian is identically zero
 (orthogonal map, reference :159-160).
@@ -17,14 +17,16 @@ Two execution paths, selected statically per shape:
   stage's input instead of storing k intermediates, exploiting
   H_i = H_i^-1 = H_i^T (port of the reference's O(1)-memory pullback,
   chained_householder_trafo_pullback_V, reference :88-114; SURVEY.md §3.3).
-  O(k·batch·d) VPU work, O(batch·d) memory. Right for large d.
+  O(k·batch·d) elementwise work, O(batch·d) memory. Right for small d;
+  each sweep is its own pass over the batch (a row reduction, then the
+  update).
 
 * ``dense``: materialize the orthogonal product Q = H_{k-1}···H_0 once per
   evaluation (O(k·d²), batch-independent) and apply it as a single batched
-  matmul ``x @ Q^T`` that runs on the **MXU** — no reference counterpart;
-  this is the TPU-idiomatic choice whenever ``d`` is small relative to the
-  batch, which is every workload in the reference's examples. AD flows
-  through the Q construction natively (cost again batch-independent).
+  matmul ``x @ Q^T`` — no reference counterpart. AD flows through the Q
+  construction natively (cost again batch-independent).
+
+``mode='auto'`` picks dense from d = 8 on (see ``Householder._use_dense``).
 
 Normalization: the forward map depends only on the *direction* of each row,
 so rows need not be unit norm; after an optimizer step, ``canonicalize()``
@@ -43,9 +45,15 @@ from .base import Bijector
 Array = jax.Array
 
 
+def _dot(a: Array, b: Array) -> Array:
+    """Contract the trailing axis elementwise: exact float32 arithmetic,
+    where a matmul at the default precision may round to TF32 on a GPU."""
+    return jnp.sum(a * b, axis=-1)
+
+
 def _reflect(v: Array, x: Array) -> Array:
     """Apply one reflection; v (d,), x (..., d). Self-inverse, self-adjoint."""
-    coef = 2.0 * (x @ v) / (v @ v)
+    coef = 2.0 * _dot(x, v) / _dot(v, v)
     return x - coef[..., None] * v
 
 
@@ -56,17 +64,17 @@ def _reflect_pullback_v(v: Array, x: Array, g: Array) -> Array:
     depends on direction only, so the gradient is tangent to the sphere).
     Batched port of householder_trafo_pullback_v (reference :22-40).
     """
-    inrm = lax.rsqrt(v @ v)
+    inrm = lax.rsqrt(_dot(v, v))
     w = inrm * v
-    w_x = x @ w                                   # (...,)
-    w_g = g @ w                                   # (...,)
+    w_x = _dot(x, w)                              # (...,)
+    w_g = _dot(g, w)                              # (...,)
     # Sum over all batch axes: dw has shape (d,).
     bshape = tuple(range(x.ndim - 1))
     dw = -2.0 * (
         jnp.sum(g * w_x[..., None], axis=bshape)
         + jnp.sum(x * w_g[..., None], axis=bshape)
     )
-    return inrm * (dw - w * (dw @ w))
+    return inrm * (dw - w * _dot(dw, w))
 
 
 @jax.custom_vjp
@@ -108,8 +116,8 @@ def householder_matrix(V: Array, dtype=None) -> Array:
 
     The dense-path analogue of the tests' oracle construction
     (/root/reference/test/test_householder_trafo.jl:18-25), used here as a
-    *production* path: Q is batch-independent, so for batch >> d computing it
-    once and hitting the MXU with ``x @ Q^T`` beats k sequential VPU sweeps.
+    *production* path: Q is batch-independent, so for batch >> d it is
+    computed once and applied as one matmul ``x @ Q^T``.
     """
     k, d = V.shape
     if dtype is None:
@@ -117,9 +125,10 @@ def householder_matrix(V: Array, dtype=None) -> Array:
     eye = jnp.eye(d, dtype=dtype)
 
     def step(Q, v):
-        w = v * lax.rsqrt(v @ v)
+        w = v * lax.rsqrt(_dot(v, v))
         # H Q = Q - 2 w (w^T Q)
-        return Q - 2.0 * jnp.outer(w, w @ Q), None
+        wQ = jnp.matmul(w, Q, precision=jax.lax.Precision.HIGHEST)
+        return Q - 2.0 * jnp.outer(w, wQ), None
 
     Q, _ = lax.scan(step, eye, V.astype(dtype))
     return Q
@@ -127,8 +136,9 @@ def householder_matrix(V: Array, dtype=None) -> Array:
 
 def householder_chain_dense(V: Array, x: Array) -> Array:
     Q = householder_matrix(V)
-    # HIGHEST precision: the TPU MXU's default bf16 passes would cost ~1e-3
-    # relative error on f32 rotations (orthogonality is a tested invariant).
+    # HIGHEST precision: at the default precision an f32 matmul may run in
+    # TF32 (or bf16 passes), ~1e-3 relative error on the rotation
+    # (orthogonality is a tested invariant).
     return jnp.matmul(x, Q.T, precision=jax.lax.Precision.HIGHEST,
                       preferred_element_type=x.dtype)
 
@@ -155,24 +165,14 @@ class Householder(Bijector):
     def _use_dense(self, x) -> bool:
         if self.mode != "auto":
             return self.mode == "dense"
-        V = self._vmat()
-        k, d = V.shape
         if x.ndim < 2:
             return False
-        batch = 1
-        for s in x.shape[:-1]:
-            batch *= s
-        # MEASURED crossover (v5e, chained-iteration per-variant minima,
-        # round 4 — replaces round 3's batch*k >= 4*d plausibility
-        # guess): dense's d^2-FLOPs MXU apply beats the k sequential
-        # rank-1 VPU sweeps only while d stays within ~one MXU tile AND
-        # the batch*k work amortizes the Q build — measured wins 1.1-1.6x
-        # at d <= 128 with batch*k >= 32*d, parity below, and a LOSS at
-        # d = 512 (0.67-0.90x, where the guess said dense) because the
-        # d^2/k FLOP ratio overtakes the MXU/VPU rate gap. Both paths are
-        # within noise for sub-30us workloads, so the boundary only
-        # matters for hot loops.
-        return d <= 128 and batch * k >= 32 * d
+        # Measured on the H100 (PERF.md, Householder; k = 4, d from 2 to
+        # 128): at 1M rows the scan's value+grad wins at d <= 4 and the
+        # dense matmul from d = 8 on. At 16K rows and below both paths sit
+        # at the same per-call dispatch floor, so the rule ignores the
+        # batch size.
+        return self._vmat().shape[1] >= 8
 
     def forward(self, x):
         V = self._vmat()
@@ -194,6 +194,6 @@ class Householder(Bijector):
     def canonicalize(self):
         V = self.V
         if V.ndim == 1:
-            return Householder(V=V * lax.rsqrt(V @ V), mode=self.mode)
+            return Householder(V=V * lax.rsqrt(_dot(V, V)), mode=self.mode)
         nrm = lax.rsqrt(jnp.sum(V * V, axis=-1, keepdims=True))
         return Householder(V=V * nrm, mode=self.mode)

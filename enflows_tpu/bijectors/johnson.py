@@ -1,6 +1,6 @@
 """Johnson SU bijector pair: tail-shaping map to/from normality.
 
-TPU-native counterpart of /root/reference/src/johnson_trafo.jl:29-107.
+Counterpart of /root/reference/src/johnson_trafo.jl:29-107.
 
     forward:  y = gamma + delta * asinh((x - xi) / lambda)
     inverse:  x = lambda * sinh((y - gamma) / delta) + xi

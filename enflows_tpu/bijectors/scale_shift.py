@@ -1,6 +1,6 @@
 """Elementwise affine bijector ``y = a * x + b``.
 
-TPU-native counterpart of ``ScaleShiftTrafo``
+Counterpart of ``ScaleShiftTrafo``
 (/root/reference/src/scale_shift_trafo.jl:4-30). Params may be scalars or
 per-dimension vectors (broadcast against the trailing event axis). Unlike the
 reference (which only defines ladj for vector-params × matrix-x,

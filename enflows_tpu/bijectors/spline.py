@@ -12,11 +12,11 @@ an exact parameter-sharing ``inverse()`` sibling (convention #5), and the
 negated-ladj-at-output identity (convention #6, exact here because the
 derivative of the inverse at y is 1/derivative of the forward at x).
 
-TPU-native design notes:
+Design notes:
 
 * **Static shapes, no gathers in the hot math.** The bin locate step is
   ``sum(x >= interior_knots)`` over the K-1 interior knots — K is small
-  (default 8), so this is a handful of fused VPU compares, not a
+  (default 8), so this is a handful of fused compares, not a
   ``searchsorted`` with data-dependent layout. Per-element bin parameters
   are then picked with ``take_along_axis`` on a length-K trailing axis
   (a lane-local select at these sizes).
@@ -112,10 +112,9 @@ def rq_spline(x: Array, w_raw: Array, h_raw: Array, d_raw: Array, *,
     idx = jnp.clip(idx, 0, K - 1)
 
     # Branchless per-element bin select via a one-hot contraction over the
-    # (small) K axis. NOT take_along_axis: XLA lowers that gather to a
-    # serial per-element address path on TPU — measured 1.6 s/dispatch at
-    # a (128K, 32, 8) operand vs ~ms for this form, which fuses into a
-    # fan of VPU multiply-adds and never materializes broadcast operands.
+    # (small) K axis instead of take_along_axis: the contraction fuses into
+    # a fan of elementwise multiply-adds and never materializes broadcast
+    # operands or a gather.
     onehot = (idx[..., None] ==
               jax.lax.broadcasted_iota(jnp.int32, idx.shape + (K,),
                                        idx.ndim)).astype(x.dtype)
@@ -216,8 +215,8 @@ class RQSplineCoupling(Bijector):
 
     The conditioner maps ``(..., split) -> (..., d_b * (3 * n_bins - 1))``
     (per transformed dim: K widths, K heights, K-1 interior derivatives) —
-    one MXU matmul stack, exactly like :class:`AffineCoupling`, with the
-    spline evaluation a fixed fan of VPU ops after it. ``inverse()`` flips
+    one matmul stack, exactly like :class:`AffineCoupling`, with the
+    spline evaluation a fixed fan of elementwise ops after it. ``inverse()`` flips
     a static flag: ``y_a == x_a`` so the inverse re-runs the *same*
     conditioner and applies the closed-form spline inverse (convention #5).
     """

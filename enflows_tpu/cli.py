@@ -204,6 +204,9 @@ def cmd_infer(cfg):
 
 def main(argv=None):
     from .utils import load_config
+    from .utils.compilation_cache import enable_persistent_compilation_cache
+
+    enable_persistent_compilation_cache()
 
     parser = argparse.ArgumentParser(prog="enflows_tpu")
     parser.add_argument("command", choices=["train", "sample", "infer"])

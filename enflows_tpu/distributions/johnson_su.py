@@ -1,6 +1,6 @@
 """Johnson SU distribution: a standard normal pushed through JohnsonInv.
 
-TPU-native counterpart of the reference's ``JohnsonSU <: Distribution``
+Counterpart of the reference's ``JohnsonSU <: Distribution``
 (/root/reference/src/johnson_trafo.jl:1-26,120-129): pdf/cdf/logpdf/quantile
 are defined by mapping through the Johnson transform and its derivative;
 sampling pushes standard-normal draws through the inverse transform (the

@@ -3,8 +3,7 @@
 The workflow the framework exists for (examples/full_pipeline.py), as a
 single first-class API. No reference counterpart (the reference stops at
 example scripts; SURVEY.md §2a examples rows) — this is the front door a
-reference user migrating to TPU gets instead of hand-wiring the M1-M3
-subsystems:
+reference user gets instead of hand-wiring the M1-M3 subsystems:
 
     result = infer(logp, dim=2, key=key)            # auto-preconditioned NUTS
     result.draws                                     # (chains, steps, dim)
@@ -14,7 +13,7 @@ subsystems:
 (train.optimize_elbo — needs no posterior draws), then samples the
 flow-preconditioned target (mcmc.logdensity) and pushes draws back to data
 space. Sampling methods: 'nuts' | 'hmc' | 'chees' (accelerator-native
-adaptive HMC, the TPU-preferred many-chain sampler) | 'smc' (tempered SMC,
+adaptive HMC, the preferred many-chain sampler) | 'smc' (tempered SMC,
 also returns the log normalizing constant).
 
 Everything inside is jit/scan-based; the diagnostics summary is the only
@@ -30,7 +29,7 @@ import numpy as np
 
 from .bijectors import (Bijector, CenterStretch, Householder, JohnsonInv,
                         ScaleShift, compose)
-from .mcmc import flow_preconditioned, sample
+from .mcmc import FlowPushforwardTarget, flow_preconditioned, sample
 from .mcmc.diagnostics import (bfmi, bulk_ess,
                                rank_normalized_rhat_per_dim, tail_ess)
 
@@ -150,21 +149,6 @@ def summarize_draws(draws, stats=None) -> dict:
     return out
 
 
-def _fused_hmc_accepts(sampler_kw: dict) -> bool:
-    """True iff every extra sampler kwarg is understood by
-    ``fused_flow_hmc_sample``. The fused fast path's kwarg surface is
-    narrower than ``mcmc.sample``'s (no ``metrics=``/``max_depth=`` ...);
-    merely declaring a target as FlowPushforwardTarget must not turn a
-    previously-valid ``infer`` call into a TypeError (ADVICE r3) — with
-    unsupported kwargs the standard path handles the call instead."""
-    import inspect
-    from .mcmc.fused_hmc import fused_flow_hmc_sample
-    accepted = set(inspect.signature(fused_flow_hmc_sample).parameters)
-    accepted -= {"chain", "key", "dim", "num_chains", "num_warmup",
-                 "num_samples", "dtype", "base_mean", "base_var"}
-    return all(k in accepted for k in sampler_kw)
-
-
 def _transport_khat(logdensity_fn: Callable, flow: Bijector, dim: int,
                     key, dtype, n: int = 2048) -> float:
     """PSIS k-hat of the transport fit: draw z ~ q (base through flow),
@@ -227,18 +211,15 @@ def infer(logdensity_fn: Callable, *, dim: int, key,
     """Sample an unnormalized target density, end to end.
 
     ``logdensity_fn``: per-sample target, (dim,) -> scalar (any jittable
-    function). ``method``: 'nuts' | 'hmc' | 'chees' | 'smc'. Targets
-    declared as ``mcmc.FlowPushforwardTarget`` (an exact pushforward of a
-    diagonal-Gaussian base through a fusible chain — warped-Gaussian
-    families) auto-route ``method='hmc'`` to the fused-leapfrog Pallas
-    kernel: trajectories integrate VMEM-resident, no VI fit needed (the
-    declared chain is the exact transport).
+    function). ``method``: 'nuts' | 'hmc' | 'chees' | 'smc'.
 
     Preconditioning: ``flow`` (a whitened->data bijector, e.g. from
     ``train.optimize_whitening`` inverted or ``train.optimize_elbo``) is
     used as-is; else ``precondition='auto'`` fits a transport by
     ``vi_steps`` ELBO steps; ``precondition=None`` samples the raw
-    target. Draws are always returned in DATA space.
+    target. A ``mcmc.FlowPushforwardTarget`` brings its own exact
+    transport, used unless ``flow``, ``data`` or ``precondition=None`` say
+    otherwise. Draws are always returned in DATA space.
 
     ``precondition_kind`` selects the transport family for the auto fit
     (VERDICT r4 next #8): 'elementwise' (default_flow_template),
@@ -296,30 +277,11 @@ def infer(logdensity_fn: Callable, *, dim: int, key,
                                             if key is None else key, 3)
     axis = mesh.axis_names[0] if mesh is not None else "chains"
 
-    # Declared-structure fast path (VERDICT r2 next #4): a target declared
-    # as an exact flow pushforward with a fusible whitening chain needs no
-    # VI preconditioner (the chain IS the exact transport) and its HMC
-    # trajectories run in the fused-leapfrog Pallas kernel, VMEM-resident.
-    from .mcmc.logdensity import FlowPushforwardTarget
-    if (method == "hmc" and isinstance(logdensity_fn, FlowPushforwardTarget)
-            and flow is None and data is None and mesh is None
-            and logdensity_fn.fused_kernel_available(dim, dtype)
-            and _fused_hmc_accepts(sampler_kw)):
-        from .mcmc.fused_hmc import fused_flow_hmc_sample
-        # The kernel samples q with density N(whiten(q)) + ladj_whiten(q)
-        # == logdensity_fn(q): draws land directly in DATA space.
-        draws, _final, stats = fused_flow_hmc_sample(
-            logdensity_fn.whiten, k_sample, dim=dim,
-            num_chains=num_chains, num_warmup=num_warmup,
-            num_samples=num_samples, dtype=dtype,
-            base_mean=logdensity_fn.base_mean,
-            base_var=logdensity_fn.base_var, **sampler_kw)
-        diagnostics = summarize_draws(draws, stats)
-        return InferenceResult(draws=draws, diagnostics=diagnostics,
-                               stats=stats,
-                               flow=logdensity_fn.transport)
-
     used_flow = flow
+    if (used_flow is None and data is None and precondition is not None
+            and isinstance(logdensity_fn, FlowPushforwardTarget)):
+        # A declared pushforward carries its exact transport: no fit.
+        used_flow = logdensity_fn.transport
     if used_flow is None and data is not None and precondition is not None:
         from .bijectors import invert
         from .train import optimize_whitening

@@ -11,7 +11,6 @@ from .chees import (
     chees_sample, chees_warmup, run_chains_chees, hmc_proposal_kernel,
     ChEESWarmupResult, ChEESSampleStats,
 )
-from .fused_hmc import fused_flow_hmc_sample, FusedHMCStats
 from .diagnostics import (
     ess, ess_per_dim, split_rhat, split_rhat_per_dim, bfmi,
     rank_normalized_rhat, rank_normalized_rhat_per_dim, bulk_ess, tail_ess,
@@ -25,7 +24,7 @@ __all__ = [
     "sample", "window_adaptation", "run_chains", "WarmupResult",
     "da_init", "da_update", "welford_init", "welford_update",
     "welford_update_batch", "welford_variance", "build_schedule",
-    "fused_flow_hmc_sample", "FusedHMCStats", "FlowPushforwardTarget",
+    "FlowPushforwardTarget",
     "chees_sample", "chees_warmup", "run_chains_chees",
     "hmc_proposal_kernel", "ChEESWarmupResult", "ChEESSampleStats",
     "ess", "ess_per_dim", "split_rhat", "split_rhat_per_dim", "bfmi",

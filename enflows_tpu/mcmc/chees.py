@@ -5,7 +5,7 @@ hostile to SPMD hardware: chains terminate at different depths, so lockstep
 vmapped chains all pay the deepest tree. ChEES-HMC (Hoffman, Radul &
 Sountsov, "An Adaptive-MCMC Scheme for Accelerating the Parallel
 Computation of Bayesian Inference", AISTATS 2021 — public literature) is
-the TPU-idiomatic answer: plain fixed-length HMC where EVERY chain shares
+the accelerator-idiomatic answer: plain fixed-length HMC where EVERY chain shares
 one jittered trajectory length per iteration, and the *expected* trajectory
 length is tuned by stochastic gradient ascent on the ChEES criterion
 
@@ -22,10 +22,10 @@ lower to psum collectives and every host holds identical adaptation state
 (the SURVEY.md §5 multi-host determinism requirement) — the same property
 the windowed warmup in sample.py relies on.
 
-Why this is the fast path on TPU:
+Why this is the fast path on an accelerator:
   * one traced `lax.fori_loop` whose trip count is a *replicated scalar* —
     no per-chain control-flow divergence, no max-depth padding;
-  * 1 gradient eval per leapfrog step, nothing else — the VPU-bound
+  * 1 gradient eval per leapfrog step, nothing else — the elementwise
     leapfrog from hmc.py is reused unchanged;
   * adaptation state is O(dim) and shared, so thousands of chains cost
     only the collective means.
@@ -107,8 +107,7 @@ def halton_base2(n: int, offset: int = 0) -> np.ndarray:
 
 
 def hmc_proposal_kernel(logdensity_fn: Callable,
-                        divergence_threshold: float = 1000.0,
-                        value_and_grad_fn: Callable | None = None):
+                        divergence_threshold: float = 1000.0):
     """One fixed-length HMC transition that also exposes the proposal.
 
     ``kernel(key, state, step_size, inv_mass_diag, num_steps)`` where
@@ -117,7 +116,7 @@ def hmc_proposal_kernel(logdensity_fn: Callable,
     single unbatched while_loop with batched carry: zero control-flow
     divergence across chains.
     """
-    value_grad_fn = value_and_grad_fn or jax.value_and_grad(logdensity_fn)
+    value_grad_fn = jax.value_and_grad(logdensity_fn)
 
     def kernel(key, state: HMCState, step_size, inv_mass_diag, num_steps):
         key_mom, key_acc = jax.random.split(key)
@@ -183,9 +182,7 @@ def _adam_ascent(adapt: ChEESAdaptState, grad, lr=0.025, b1=0.9, b2=0.999,
 def chees_warmup(logdensity_fn: Callable, initial_states: HMCState, key,
                  num_warmup: int, *, initial_step_size=0.1,
                  target_accept=OPTIMAL_ACCEPT, max_num_steps: int = 512,
-                 adam_lr: float = 0.025,
-                 value_and_grad_fn: Callable | None = None
-                 ) -> ChEESWarmupResult:
+                 adam_lr: float = 0.025) -> ChEESWarmupResult:
     """Joint (step size, trajectory length, mass matrix) adaptation.
 
     One `lax.scan` over warmup iterations; every per-iteration scalar
@@ -199,8 +196,7 @@ def chees_warmup(logdensity_fn: Callable, initial_states: HMCState, key,
     in_slow = jnp.asarray(in_slow_np)
     window_end = jnp.asarray(window_end_np)
 
-    kernel = hmc_proposal_kernel(logdensity_fn,
-                                 value_and_grad_fn=value_and_grad_fn)
+    kernel = hmc_proposal_kernel(logdensity_fn)
     vkernel = jax.vmap(kernel, in_axes=(0, 0, None, None, None))
     max_log_h = jnp.log(jnp.asarray(max_num_steps, dtype))
 
@@ -269,8 +265,7 @@ class ChEESSampleStats(NamedTuple):
 
 def run_chains_chees(logdensity_fn: Callable, states: HMCState, key,
                      num_samples: int, step_size, trajectory_length,
-                     inv_mass_diag, max_num_steps: int = 512,
-                     value_and_grad_fn: Callable | None = None):
+                     inv_mass_diag, max_num_steps: int = 512):
     """Sampling phase: jittered fixed-length HMC at the adapted settings.
 
     Trajectory lengths stay quasi-randomly jittered (continuing the Halton
@@ -279,8 +274,7 @@ def run_chains_chees(logdensity_fn: Callable, states: HMCState, key,
     nchains = states.q.shape[0]
     dtype = states.q.dtype
     jitter = jnp.asarray(halton_base2(num_samples, offset=1 << 20), dtype)
-    kernel = hmc_proposal_kernel(logdensity_fn,
-                                 value_and_grad_fn=value_and_grad_fn)
+    kernel = hmc_proposal_kernel(logdensity_fn)
     vkernel = jax.vmap(kernel, in_axes=(0, 0, None, None, None))
 
     def step(states, xs):
@@ -304,20 +298,6 @@ def run_chains_chees(logdensity_fn: Callable, states: HMCState, key,
     return jnp.swapaxes(qs, 0, 1), states, stats
 
 
-# Fused-vg auto-route boundary in chains*dim ELEMENTS. Round 4 set
-# 1<<17 from 3 coarse points (0.70x/1.06x/1.29x at 128/2048/8192 chains
-# x 50D); the round-5 systematic sweep (benchmarks/bench_chees_sweep.py:
-# full warmup+sampling wall, best-of-3, route forced on/off, 4 chain
-# counts x 3 dims x two chain depths) measured 0.70-1.11x with NO
-# reliably-winning cell — the 1.29x did not reproduce even at round 4's
-# exact config (0.92x). Auto-routing is therefore DISABLED (sentinel
-# below); the route itself stays available, correct and oracle-gated
-# (set this constant to re-enable, e.g. on future multi-chip or
-# heavier-chain regimes). BASELINE.md "ChEES fused-route crossover"
-# carries the sweep table.
-CHEES_VG_MIN_ELEMENTS = 1 << 62
-
-
 @partial(jax.jit, static_argnames=("logdensity_fn", "num_warmup",
                                    "num_samples", "num_chains", "dim",
                                    "max_num_steps"))
@@ -325,30 +305,16 @@ def _chees_impl(logdensity_fn, key, initial_position, *, num_warmup,
                 num_samples, num_chains, dim, max_num_steps,
                 initial_step_size, target_accept):
     k_init, k_warm, k_samp = jax.random.split(key, 3)
-    # Targets declaring flow-pushforward structure CAN take the fused
-    # Pallas gradient route (mcmc.logdensity.FlowPushforwardTarget.
-    # batched_value_and_grad). The round-5 sweep measured it at/below
-    # parity across the whole grid (see CHEES_VG_MIN_ELEMENTS above),
-    # so auto-routing is off by default; the gate stays TPU-only
-    # (interpret-mode pallas would crawl on CPU).
-    n_chains = initial_position.shape[0]
-    vg_builder = getattr(logdensity_fn, "batched_value_and_grad", None)
-    vg_fn = (vg_builder(dim, initial_position.dtype)
-             if vg_builder is not None
-             and n_chains * dim >= CHEES_VG_MIN_ELEMENTS
-             and jax.default_backend() == "tpu" else None)
     states = jax.vmap(lambda q: init_state(logdensity_fn, q))(
         initial_position)
     warm = chees_warmup(logdensity_fn, states, k_warm, num_warmup,
                         initial_step_size=initial_step_size,
                         target_accept=target_accept,
-                        max_num_steps=max_num_steps,
-                        value_and_grad_fn=vg_fn)
+                        max_num_steps=max_num_steps)
     return run_chains_chees(logdensity_fn, warm.states, k_samp, num_samples,
                             warm.step_size, warm.trajectory_length,
                             warm.inv_mass_diag,
-                            max_num_steps=max_num_steps,
-                            value_and_grad_fn=vg_fn)
+                            max_num_steps=max_num_steps)
 
 
 def chees_sample(logdensity_fn: Callable, key, *, dim: int,
@@ -362,7 +328,7 @@ def chees_sample(logdensity_fn: Callable, key, *, dim: int,
     Same return contract as mcmc.sample: (samples (chains, steps, dim),
     final_states, stats). Designed for MANY chains (the cross-chain ChEES
     expectation needs population diversity; >=16 recommended, the more the
-    better — chains are free on TPU).
+    better — extra chains cost little on an accelerator).
     """
     if initial_position is None:
         key, k0 = jax.random.split(key)

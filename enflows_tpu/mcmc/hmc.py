@@ -1,8 +1,8 @@
 """Hamiltonian Monte Carlo: leapfrog integrator and Metropolis HMC kernel.
 
-No reference counterpart (SURVEY.md §2b): built TPU-first — the integrator
-is a `lax.fori_loop` of fused elementwise updates (VPU-bound, fully
-jittable), the kernel is pure and vmaps over a chains axis, and every draw
+No reference counterpart (SURVEY.md §2b): the integrator is a
+`lax.fori_loop` of fused elementwise updates (fully jittable), the kernel
+is pure and vmaps over a chains axis, and every draw
 uses explicit `jax.random` keys so multi-chip sharding stays deterministic.
 
 Conventions: position/momentum are (dim,) per chain; a diagonal mass matrix
@@ -71,15 +71,11 @@ def leapfrog(value_grad_fn: Callable, q, p, grad, step_size, inv_mass_diag,
 
 
 def hmc_kernel(logdensity_fn: Callable, num_steps: int = 32,
-               divergence_threshold: float = 1000.0,
-               value_and_grad_fn: Callable | None = None):
+               divergence_threshold: float = 1000.0):
     """Build a one-transition HMC kernel:
     (key, state, step_size, inv_mass_diag) -> (state, info).
-    ``value_and_grad_fn`` overrides ``jax.value_and_grad(logdensity_fn)``
-    — e.g. a ``custom_vmap`` that batches chain gradients through the
-    fused Pallas kernels (FlowPushforwardTarget.batched_value_and_grad).
     """
-    value_grad_fn = value_and_grad_fn or jax.value_and_grad(logdensity_fn)
+    value_grad_fn = jax.value_and_grad(logdensity_fn)
 
     def kernel(key, state: HMCState, step_size, inv_mass_diag):
         key_mom, key_acc = jax.random.split(key)

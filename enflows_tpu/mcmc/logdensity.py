@@ -64,14 +64,9 @@ class FlowPushforwardTarget:
 
         logp(x) = diag_normal_logpdf(T^{-1}(x)) + ladj_{T^{-1}}(x)
 
-    Declaring the structure (instead of closing over it in an opaque
-    lambda) lets ``infer`` route HMC on such targets to the fused-leapfrog
-    Pallas kernel (ops.pallas.leapfrog): whole trajectories integrate
-    VMEM-resident through the whitening chain ``T^{-1}``, ~32x over the
-    jnp leapfrog at d=50 (BASELINE.md). The whitening chain must be
-    fusible (elementwise + Householder stages, d <= 128) for the fused
-    route; otherwise infer falls back to the standard path and this class
-    is just a convenient exact density.
+    The declared transport is the exact preconditioner for this target:
+    ``infer`` samples through it by default (no VI fit), and
+    ``flow_preconditioned`` takes it to sample in whitened coordinates.
     """
 
     def __init__(self, transport: Bijector, base_mean=None,
@@ -81,51 +76,6 @@ class FlowPushforwardTarget:
         self.whiten = invert(transport)
         self.base_mean = base_mean
         self.base_var = base_var
-
-    def fused_kernel_available(self, dim: int, dtype=jnp.float32) -> bool:
-        from ..ops.pallas.elementwise import is_fusible_chain
-        return is_fusible_chain(self.whiten, dim, dtype)
-
-    def batched_value_and_grad(self, dim: int, dtype=jnp.float32):
-        """Per-chain ``(q) -> (logp, grad)`` that, when the samplers vmap
-        it over chains, computes the whole batch through ONE packed Pallas
-        forward + ONE Pallas backward (``jax.custom_batching.custom_vmap``)
-        instead of an XLA chain per leaf — the fused gradient route for
-        NUTS/HMC trees on fusible targets (VERDICT r3 next #4; the fused
-        LEAPFROG kernel covers fixed-length HMC, this covers the
-        tree samplers whose per-leaf control flow can't stay in-kernel).
-        Returns None when the fused kernels don't apply."""
-        if not self.fused_kernel_available(dim, dtype):
-            return None
-        from ..ops.pallas.elementwise import fused_forward_and_ladj_packed
-        import jax.custom_batching
-
-        chain = self.whiten
-        mu = 0.0 if self.base_mean is None else self.base_mean
-        var = 1.0 if self.base_var is None else self.base_var
-        target = self
-
-        @jax.custom_batching.custom_vmap
-        def vg(q):
-            return jax.value_and_grad(target.__call__)(q)
-
-        @vg.def_vmap
-        def _rule(axis_size, in_batched, q):
-            def batched_logp(Q):
-                yf, ladj = fused_forward_and_ladj_packed(
-                    chain, Q.reshape(-1), dim)
-                y = yf.reshape(axis_size, dim)
-                d = y - mu
-                lp = -0.5 * jnp.sum(d * d / var
-                                    + jnp.log(2 * jnp.pi * var)
-                                    * jnp.ones_like(y), axis=-1)
-                return lp + ladj
-
-            lp, pull = jax.vjp(batched_logp, q)
-            grad, = pull(jnp.ones_like(lp))
-            return (lp, grad), (True, True)
-
-        return vg
 
     def __call__(self, x):
         z, ladj = self.whiten.forward_and_ladj(x)

@@ -69,20 +69,14 @@ def _trailing_ones(n):
 
 def nuts_kernel(logdensity_fn: Callable, max_depth: int = 10,
                 divergence_threshold: float = 1000.0,
-                extra_uturn_checks: bool = True,
-                value_and_grad_fn: Callable | None = None):
+                extra_uturn_checks: bool = True):
     """Build a one-transition NUTS kernel:
     (key, state, step_size, inv_mass_diag) -> (state, info).
 
     ``extra_uturn_checks``: Stan's merge-boundary conditions (module
     docstring). On by default; the False path exists for A/B benchmarking
-    (benchmarks/bench_mcmc.py records ESS-per-gradient for both).
-
-    ``value_and_grad_fn`` overrides ``jax.value_and_grad(logdensity_fn)``
-    — e.g. a ``custom_vmap`` that computes all vmapped chains' leaf
-    gradients through one fused Pallas forward+backward pair per leapfrog
-    step (FlowPushforwardTarget.batched_value_and_grad)."""
-    value_grad_fn = value_and_grad_fn or jax.value_and_grad(logdensity_fn)
+    (benchmarks/bench_mcmc.py records ESS-per-gradient for both)."""
+    value_grad_fn = jax.value_and_grad(logdensity_fn)
 
     def make_helpers(inv_mass_diag):
         def leapfrog_step(q, p, grad, eps):

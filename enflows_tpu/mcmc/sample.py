@@ -160,13 +160,6 @@ def _sample_impl(logdensity_fn, key, initial_position, *, num_warmup,
                  num_samples, num_chains, dim, max_depth, algorithm,
                  num_steps, initial_step_size, target_accept,
                  metrics=None):
-    # NOTE on the fused gradient route (FlowPushforwardTarget.
-    # batched_value_and_grad): NUTS/HMC measured at wall-time PARITY with
-    # it at 128/2048/8192 chains x 50D (tree machinery binds, not
-    # gradients — BASELINE.md lockstep decomposition), so tree samplers
-    # do NOT auto-route; the kernels keep the value_and_grad_fn override
-    # for callers. ChEES — which IS gradient-rate-bound — auto-routes at
-    # scale (chees._chees_impl).
     if algorithm == "nuts":
         kernel = nuts_kernel(logdensity_fn, max_depth=max_depth)
     else:
@@ -194,7 +187,7 @@ def sample(logdensity_fn: Callable, key, *, dim: int,
     Returns (samples (chains, num_samples, dim), final_states, stats).
     ``logdensity_fn``: (dim,) -> scalar.
     ``algorithm``: 'nuts' | 'hmc' | 'chees' (accelerator-native adaptive
-    fixed-length HMC, see mcmc.chees — prefer it for many-chain TPU runs;
+    fixed-length HMC, see mcmc.chees — prefer it for many-chain runs;
     it uses its own optimal acceptance target 0.651, ignoring
     ``target_accept``; call chees_sample directly to override).
 

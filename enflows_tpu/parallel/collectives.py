@@ -3,9 +3,8 @@
 No reference counterpart (SURVEY.md §5 "Distributed communication backend:
 ABSENT"). Thin, named wrappers over XLA collectives so inference code reads
 at the domain level (consensus, gather-diagnostics) rather than the
-primitive level. All of these compile to ICI ring collectives within a
-slice and DCN transfers across slices — placement follows the mesh axis
-order chosen in parallel.mesh.
+primitive level. XLA lowers them to the backend's collectives (NCCL
+across the cards of a GPU host).
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ combines. Ring/Ulysses-style sequence tricks are deliberately NOT
 cargo-culted in (SURVEY.md §5).
 
 Works for any chain of elementwise bijectors (per-dim params). Householder
-mixes dimensions and is excluded — for large-d rotations use the dense MXU
-path with the batch axis sharded instead.
+mixes dimensions and is excluded — for large-d rotations use the dense
+matmul path with the batch axis sharded instead.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """Device mesh construction and multi-host runtime initialization.
 
 No reference counterpart (SURVEY.md §2b "Distributed runtime" row; the
-reference is single-process pure Julia). TPU-native design per SURVEY.md §5:
+reference is single-process pure Julia). Design per SURVEY.md §5:
 `jax.distributed.initialize` for the multi-host runtime, a 1–2D
-`jax.sharding.Mesh` over the pod slice, and a flattened ``chains`` axis for
-sampling workloads (chains/particles are embarrassingly parallel; params
-replicate). Mesh axes are laid out so that the chains axis maps onto ICI
-(intra-slice torus) before DCN (inter-host), keeping collectives on the
-fast fabric.
+`jax.sharding.Mesh` over the devices, and a flattened ``chains`` (or
+``batch``) axis for sampling and training workloads (chains, particles and
+batch rows are embarrassingly parallel; params replicate). The cards of
+one GPU host are joined all to all by NVLink, so the mesh shape follows
+the algorithm alone: one axis for data parallelism, a second only where a
+program shards two things at once (e.g. hosts x chains).
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ def distributed_init(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize the multi-host JAX runtime (no-op if single-process).
 
-    On TPU pods the arguments are auto-detected from the environment;
-    explicit values support manual/CPU-fleet bring-up.
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly; environments that export
+    ``JAX_COORDINATOR_ADDRESS`` are picked up as well.
 
     NOTE the already-initialized guard must NOT touch the backend:
     ``jax.process_count()`` here would initialize XLA and make the
@@ -49,8 +51,8 @@ def make_mesh(axes: Optional[dict[str, int]] = None,
     """Build a mesh. Default: every device on one flattened ``chains`` axis.
 
     ``axes``: ordered {name: size} with total == device count; e.g.
-    {"hosts": 2, "chains": 4} puts the host (DCN) axis outermost so the
-    inner ``chains`` collectives ride ICI.
+    {"hosts": 2, "chains": 4} puts the host axis outermost so the inner
+    ``chains`` collectives stay within a host.
     """
     if devices is None:
         devices = jax.devices()

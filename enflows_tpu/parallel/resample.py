@@ -17,10 +17,10 @@ Design (inside `shard_map`):
 
    * ``gather`` — assemble the global CDF with one (n_global,) `all_gather`
      + searchsorted, then one tiled `all_gather` of particles plus a local
-     row gather. Minimum latency (XLA lowers the gathers to bidirectional
-     ICI rings with overlapped steps), but every device materializes the
+     row gather. Minimum latency, but every device materializes the
      full (n_global, dim) array. Right below ~10^6 x 100-dim f32 particles
-     (≤ ~0.4 GB of HBM), which covers every BASELINE.json config.
+     (≤ ~0.4 GB of device memory), which covers every BASELINE.json
+     config.
    * ``ring`` — O(n_local) peak memory end to end. Ancestry: each shard's
      slice of the global CDF (local cumulative weights + its device prefix,
      a K-scalar all_gather) rotates around the mesh via `ppermute`; at each
@@ -30,10 +30,10 @@ Design (inside `shard_map`):
      ancestry is bit-identical to the gather path. Exchange: a second
      k-step `ppermute` ring rotates the (n_local, dim) particle blocks,
      each shard copying the rows it needs out of the visiting block with a
-     masked gather. Same total ICI bytes as the all_gather (each block
-     traverses the whole ring) but nothing O(n_global) is ever
-     materialized, so particle counts scale with the pod rather than with
-     a single chip's HBM.
+     masked gather. Same total interconnect bytes as the all_gather (each
+     block traverses the whole ring) but nothing O(n_global) is ever
+     materialized, so particle counts scale with the number of devices
+     rather than with one device's memory.
 
    ``sharded_systematic_resample`` auto-selects: ``ring`` once the
    gathered array would exceed ``_GATHER_BYTES_LIMIT`` (256 MB), ``gather``

@@ -17,8 +17,8 @@ per-particle computation stays shard-local; the only cross-chip traffic is
   smc.flow_transport).
 
 Everything else is embarrassingly parallel, which is why samples/s should
-scale ~linearly in chips (the ≥80% scaling-efficiency target in
-BASELINE.md).
+scale ~linearly in devices (the ≥80% scaling-efficiency target of the
+BASELINE.json north star).
 
 RNG contract: per-particle mutation keys are derived by splitting the step
 key to the *global* particle count and slicing each shard's contiguous
@@ -40,7 +40,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..mcmc.hmc import hmc_kernel, init_state
-from ..smc.smc import SMCState, SMCInfo, make_tempered
+from ..smc.smc import (ESS_TRIGGER_SLACK, SMCInfo, SMCState, make_tempered,
+                       warn_if_unfinished)
 from .resample import sharded_systematic_resample
 
 
@@ -119,9 +120,11 @@ def build_sharded_smc_step(log_base: Callable, log_target: Callable,
         one = jnp.asarray(1.0, dtype)
         with jax.named_scope("enflows.smc.tempering"):
             full = ess_at(one) >= target_log_ess
-            lo, _, _ = lax.while_loop(
+            # hi, as in smc.make_compute_next_beta: ESS(hi) is under the
+            # target, so beta advances and the resample trigger fires.
+            _, hi, _ = lax.while_loop(
                 cond, body, (beta, one, jnp.asarray(0, jnp.int32)))
-            beta_new = jnp.where(full, one, lo)
+            beta_new = jnp.where(full, one, hi)
 
         if transport_steps > 0:
             # --- learned annealing transport (AFT), fit data-parallel.
@@ -179,7 +182,8 @@ def build_sharded_smc_step(log_base: Callable, log_target: Callable,
         log_weights = log_weights + lw_inc
 
         cur_ess = jnp.exp(_global_log_ess(log_weights, axis_name))
-        do_resample = cur_ess <= resample_threshold * n_global * (1 + 1e-6)
+        do_resample = cur_ess <= resample_threshold * n_global * (
+            1 + ESS_TRIGGER_SLACK)
 
         def do_res(args):
             lw, parts = args
@@ -427,6 +431,7 @@ def smc_sample_sharded(log_target: Callable, key, mesh: Mesh, *, dim: int,
         n_t = int(n_t)
         infos = [jax.tree.map(lambda b, i=i: b[i], info_buf)
                  for i in range(n_t)]
+        warn_if_unfinished(state.beta, n_t, max_temps)
         return state.particles, state.log_weights, state.log_z, infos
 
     infos = []
@@ -450,4 +455,5 @@ def smc_sample_sharded(log_target: Callable, key, mesh: Mesh, *, dim: int,
                         log_z=float(info.log_z))
         if float(state.beta) >= 1.0:
             break
+    warn_if_unfinished(state.beta, len(infos), max_temps)
     return state.particles, state.log_weights, state.log_z, infos

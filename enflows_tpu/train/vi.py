@@ -1,6 +1,6 @@
 """Flow-based variational inference: ELBO optimization.
 
-TPU-native redesign of /root/reference/examples/nf_variational_1d.jl
+Redesign of /root/reference/examples/nf_variational_1d.jl
 (the reference keeps VI at example level; here it is a first-class trainer —
 SURVEY.md §2b "Whitening/VI optimizer" row). For base xi ~ N(0, I_dim) and
 transport z = f(xi):
@@ -30,33 +30,22 @@ from ..bijectors.base import Bijector
 _LOG_2PI = 1.8378770664093453
 
 
-def neg_elbo(flow: Bijector, logdensity_fn: Callable, xi: jax.Array,
-             use_fused_coupling: bool = False) -> jax.Array:
+def neg_elbo(flow: Bijector, logdensity_fn: Callable,
+             xi: jax.Array) -> jax.Array:
     """Negative ELBO for transport ``flow`` against unnormalized logdensity.
 
     xi: (n, dim) base-normal draws. Counterpart of nELBO (reference :25-36)
-    with the corrected entropy term. ``use_fused_coupling`` routes the
-    batched forward+ladj through the fused whole-stack coupling kernel
-    (ops.pallas.coupling — logical lane order preserved because z feeds
-    an arbitrary user log density); selected by ``optimize_elbo`` per
-    the measured train-step crossover. Under a mesh the kernel still
-    runs — the whole VI scan executes inside ``jax.shard_map`` with
-    each shard pushing its local MC-batch slice through the kernel
-    (round 5; a pallas_call partitions per shard, not over the mesh).
+    with the corrected entropy term.
     """
-    if use_fused_coupling:
-        from ..ops.pallas.coupling import fused_coupling_forward_and_ladj
-        z, ladj = fused_coupling_forward_and_ladj(flow, xi)
-    else:
-        z, ladj = flow.forward_and_ladj(xi)
+    z, ladj = flow.forward_and_ladj(xi)
     n, dim = xi.shape
     elbo = (jnp.sum(logdensity_fn(z)) + jnp.sum(ladj)) / n \
         + 0.5 * (_LOG_2PI + 1.0) * dim
     return -elbo
 
 
-def neg_elbo_stl(flow: Bijector, logdensity_fn: Callable, xi: jax.Array,
-                 use_fused_coupling: bool = False) -> jax.Array:
+def neg_elbo_stl(flow: Bijector, logdensity_fn: Callable,
+                 xi: jax.Array) -> jax.Array:
     """Sticking-the-landing negative ELBO (Roeder et al. 2017,
     "Sticking the Landing": path-derivative gradient estimator).
 
@@ -75,18 +64,11 @@ def neg_elbo_stl(flow: Bijector, logdensity_fn: Callable, xi: jax.Array,
     VALUE differs from ``neg_elbo`` per batch by the empirical-vs-
     analytic base entropy, ``-mean(log N(ξ)) - dim/2 (log 2π + 1)``
     (zero-mean, O(1/√n)); expectations coincide. Cost: one extra
-    inverse pass per step (~2x forward FLOPs) — both passes route
-    through the fused coupling kernel when ``use_fused_coupling`` (the
-    kernel runs inverted stacks natively).
+    inverse pass per step (~2x forward FLOPs).
     """
-    if use_fused_coupling:
-        from ..ops.pallas.coupling import fused_coupling_forward_and_ladj
-        fwd = fused_coupling_forward_and_ladj
-    else:
-        fwd = lambda f, u: f.forward_and_ladj(u)
-    z, _ = fwd(flow, xi)
+    z, _ = flow.forward_and_ladj(xi)
     g_bar = jax.lax.stop_gradient(flow).inverse()
-    xi_bar, ladj_inv = fwd(g_bar, z)
+    xi_bar, ladj_inv = g_bar.forward_and_ladj(z)
     n, dim = xi.shape
     log_q = (-0.5 * jnp.sum(xi_bar * xi_bar, axis=-1)
              - 0.5 * dim * _LOG_2PI + ladj_inv)
@@ -116,7 +98,6 @@ def optimize_elbo(
     batch_axis: str = "batch",
     dtype=jnp.float32,
     metrics=None,
-    use_fused_coupling: bool | None = None,
     stl: bool = False,
     checkpoint_every: int | None = None,
     ckpt_dir: str | None = None,
@@ -157,59 +138,20 @@ def optimize_elbo(
     if opt_state is None:
         opt_state = optimizer.init(initial_flow)
 
-    # Auto (None) is TPU-only: interpret-mode pallas in the VI scan is
-    # ~100x slow on CPU; True forces the fused path on any backend
-    # (tests), False forces jnp. A mesh no longer disables the fused
-    # path (VERDICT r4 next #1): the scan runs inside shard_map, each
-    # shard pushes its LOCAL slice of the MC batch through the kernel,
-    # and loss/grads are pmean'd.
-    from ..ops.pallas.coupling import (
-        coupling_train_dispatch_min_elements, is_fusible_coupling_stack)
-    total_batch = batch_size * (2 if antithetic else 1)
-    nshards = mesh.shape[batch_axis] if mesh is not None else 1
-    if use_fused_coupling is None:
-        # Auto-dispatch keys on the MEASURED train-step crossover (the
-        # fused step differentiates through the kernel — pallas fwd +
-        # pallas recompute-bwd — which only amortizes at large MC
-        # batches; see coupling_train_dispatch_min_elements).
-        fused_c = (jax.default_backend() == "tpu"
-                   and (total_batch // nshards) * dim >=
-                   coupling_train_dispatch_min_elements(initial_flow)
-                   and is_fusible_coupling_stack(initial_flow, dim,
-                                                 dtype))
-    else:
-        fused_c = bool(use_fused_coupling) and is_fusible_coupling_stack(
-            initial_flow, dim, dtype)
-
-    sharded_fused = mesh is not None and fused_c
-    if sharded_fused and total_batch % nshards:
-        raise ValueError(
-            f"MC batch {total_batch} must divide over {nshards} "
-            f"'{batch_axis}' shards for the fused sharded path")
-
     def step(carry, i):
         flow, opt_state = carry
         k = jax.random.fold_in(key, i)
         xi = jax.random.normal(k, (batch_size, dim), dtype=dtype)
         if antithetic:
             xi = jnp.concatenate([xi, -xi], axis=0)  # reference :57
-        if sharded_fused:
-            # Inside shard_map: every shard draws the identical global
-            # batch (same key) and keeps its own contiguous slice, so
-            # the global MC sample — and hence the pmean'd loss/grads —
-            # matches the unsharded run draw-for-draw.
-            local_n = total_batch // nshards
-            idx = lax.axis_index(batch_axis)
-            xi = lax.dynamic_slice_in_dim(xi, idx * local_n, local_n)
-        elif mesh is not None:
+        if mesh is not None:
             # Shard the MC batch; XLA inserts the gradient psum from the
             # sharding annotations (data-parallel ELBO).
             from jax.sharding import NamedSharding, PartitionSpec as P
             xi = jax.lax.with_sharding_constraint(
                 xi, NamedSharding(mesh, P(batch_axis)))
         loss = neg_elbo_stl if stl else neg_elbo
-        nelbo, grads = jax.value_and_grad(loss)(
-            flow, logdensity_fn, xi, fused_c)
+        nelbo, grads = jax.value_and_grad(loss)(flow, logdensity_fn, xi)
         if stl:
             # Record the STANDARD nELBO in the history so stl=True and
             # stl=False runs are comparable step-for-step (ADVICE r4):
@@ -222,12 +164,6 @@ def optimize_elbo(
             mean_logN = (-0.5 * jnp.sum(xi * xi) / nb
                          - 0.5 * nd * _LOG_2PI)
             nelbo = nelbo - mean_logN - 0.5 * (_LOG_2PI + 1.0) * nd
-        if sharded_fused:
-            # Local means -> global-batch consensus (applied after the
-            # STL scale correction, which is linear, so the pmean of
-            # locally-corrected values IS the global corrected value).
-            nelbo = lax.pmean(nelbo, batch_axis)
-            grads = lax.pmean(grads, batch_axis)
         updates, opt_state = optimizer.update(grads, opt_state, flow)
         flow = optax.apply_updates(flow, updates)
         flow = flow.canonicalize()
@@ -242,11 +178,6 @@ def optimize_elbo(
                     step, (flow, opt_state), i0 + jnp.arange(ns))
             return flow, opt_state, hist
 
-        if sharded_fused:
-            from jax.sharding import PartitionSpec as P
-            return jax.jit(jax.shard_map(
-                run_body, mesh=mesh, in_specs=(P(), P(), P()),
-                out_specs=(P(), P(), P()), check_vma=False))
         return jax.jit(run_body)
 
     if checkpoint_every or ckpt_dir:

@@ -1,6 +1,6 @@
 """Maximum-likelihood whitening trainer: fit a flow so f(X) ~ N(0, I).
 
-TPU-native redesign of /root/reference/src/optimize_whitening.jl. The loss
+Redesign of /root/reference/src/optimize_whitening.jl. The loss
 is the reference's per-sample mean negative log-likelihood under the change
 of variables (mvnormal_negll_trafo, reference :7-15):
 
@@ -46,34 +46,6 @@ def mvnormal_negll(flow: Bijector, X: jax.Array) -> jax.Array:
     return -ll
 
 
-def mvnormal_negll_packed(flow: Bijector, x_flat: jax.Array,
-                          dim: int) -> jax.Array:
-    """negll on a PACKED batch (row-major flattened (n, dim)) through the
-    fused Pallas kernel — the hot-loop form (see ops.pallas.elementwise for
-    why layout dominates). Identical value to ``mvnormal_negll``."""
-    from ..ops.pallas.elementwise import fused_forward_and_ladj_packed
-    from ..distributions.base import std_normal_logpdf
-
-    y_flat, ladj = fused_forward_and_ladj_packed(flow, x_flat, dim)
-    n = x_flat.shape[0] // dim
-    ll = (jnp.sum(std_normal_logpdf(y_flat)) + jnp.sum(ladj)) / n
-    return -ll
-
-
-def mvnormal_negll_coupling(flow: Bijector, X: jax.Array) -> jax.Array:
-    """negll through the fused coupling-stack kernel
-    (ops.pallas.coupling) — identical value to ``mvnormal_negll``.
-    ``physical_order=True`` is sound here: the isotropic base logpdf and
-    the per-sample ladj are invariant to the kernel's lane order."""
-    from ..ops.pallas.coupling import fused_coupling_forward_and_ladj
-
-    Y, ladj = fused_coupling_forward_and_ladj(flow, X,
-                                              physical_order=True)
-    n = X.shape[0]
-    ll = (jnp.sum(std_normal_logpdf_sum(Y)) + jnp.sum(ladj)) / n
-    return -ll
-
-
 def mvnormal_negll_grad(flow: Bijector, X: jax.Array):
     """(negll, d_flow) — counterpart of mvnormal_negll_trafograd (ref :18-22)."""
     return jax.value_and_grad(mvnormal_negll)(flow, X)
@@ -86,23 +58,12 @@ class WhiteningResult(NamedTuple):
 
 
 def make_train_step(optimizer: optax.GradientTransformation,
-                    loss_fn: Callable = mvnormal_negll,
-                    axis_name: str | None = None):
-    """One fused (loss, grad, update, canonicalize) step, jit-compatible.
-
-    ``axis_name``: when the step runs inside ``jax.shard_map`` over a
-    data-parallel mesh axis, the per-shard loss/grads (means over the
-    LOCAL batch block) are ``pmean``'d over it so every shard applies the
-    identical global-batch update — the explicit-collective analogue of
-    the spmd path's automatic gradient psum.
-    """
+                    loss_fn: Callable = mvnormal_negll):
+    """One fused (loss, grad, update, canonicalize) step, jit-compatible."""
 
     def step(carry, X):
         flow, opt_state = carry
         negll, grads = jax.value_and_grad(loss_fn)(flow, X)
-        if axis_name is not None:
-            negll = lax.pmean(negll, axis_name)
-            grads = lax.pmean(grads, axis_name)
         updates, opt_state = optimizer.update(grads, opt_state, flow)
         flow = optax.apply_updates(flow, updates)
         # Explicit-JAX replacement for the reference's renormalization inside
@@ -124,7 +85,6 @@ def optimize_whitening(
     negll_history: jax.Array | None = None,
     mesh: Mesh | None = None,
     batch_axis: str = "batch",
-    use_fused: bool | str | None = None,
     metrics=None,
     checkpoint_every: int | None = None,
     ckpt_dir: str | None = None,
@@ -161,83 +121,11 @@ def optimize_whitening(
     if opt_state is None:
         opt_state = optimizer.init(initial_flow)
 
-    # Data-parallel fused dispatch (VERDICT r4 next #1): kernel dispatch
-    # is keyed on the PER-SHARD batch block — each shard runs the packed
-    # kernel on its local rows inside shard_map and the grads are
-    # pmean'd, so multi-chip training keeps the measured 4-5x kernel
-    # wins instead of forfeiting them to the jnp path.
-    nshards = 1
-    if mesh is not None:
-        nshards = mesh.shape[batch_axis]
-        if batch_size % nshards:
-            raise ValueError(
-                f"batch size {batch_size} (n//nbatches) must divide over "
-                f"{nshards} '{batch_axis}' shards")
-    local_bs = batch_size // nshards
-
-    use_fused_coupling = False
-    if use_fused == "coupling":        # explicit opt-in (tests; any
-        use_fused, use_fused_coupling = False, True  # backend)
-    elif use_fused is None:
-        from ..ops.pallas.elementwise import (PACKED_WIN_MAX_DIM,
-                                              is_fusible_chain)
-        # Fixed per-step pallas dispatch cost only amortizes on large
-        # batches; below ~64K elements — or above d=8, where XLA lays the
-        # (n, d) batch out near the VPU roof itself — the jnp path wins
-        # (see PACKED_WIN_MAX_DIM).
-        use_fused = (local_bs * dim >= (1 << 16)
-                     and dim <= PACKED_WIN_MAX_DIM
-                     and is_fusible_chain(initial_flow, dim,
-                                          samples.dtype))
-        if not use_fused and jax.default_backend() == "tpu":
-            # Coupling stacks: round 5 replaced the jnp-recompute
-            # backward (which made fused TRAINING a measured 0.90x LOSS)
-            # with a Pallas recompute-in-VMEM backward; the fused train
-            # step now wins 2.23x (affine) / 1.28x (spline) at the
-            # BASELINE config, with measured crossovers encoded in
-            # coupling_train_dispatch_min_elements (VERDICT r4 next #2).
-            from ..ops.pallas.coupling import (
-                coupling_train_dispatch_min_elements,
-                is_fusible_coupling_stack)
-            use_fused_coupling = (
-                is_fusible_coupling_stack(initial_flow, dim,
-                                          samples.dtype)
-                and local_bs * dim >=
-                coupling_train_dispatch_min_elements(initial_flow))
-    axis = batch_axis if (mesh is not None
-                          and (use_fused or use_fused_coupling)) else None
-    if use_fused:
-        # Packed hot loop: batches become flat rows and loss+grads come
-        # from the single-pass fused kernel (ops.pallas.elementwise.
-        # fused_negll_value_and_grad) — one tile sweep per step. For
-        # d !| 128 the events are padded to event_pad(dim) lanes ONCE
-        # here, outside the scan, so the per-step relayout cost vanishes.
-        from ..ops.pallas.elementwise import (event_pad,
-                                              fused_negll_value_and_grad)
-
-        dp = event_pad(dim)
-        if dp != dim:
-            batches = jnp.pad(batches, ((0, 0), (0, 0), (0, dp - dim)),
-                              constant_values=1.0)
-        batches = batches.reshape(nbatches, batch_size * dp)
-
-        def step(carry, X):
-            flow, opt_state = carry
-            negll, grads = fused_negll_value_and_grad(flow, X, dim,
-                                                      padded=True)
-            if axis is not None:
-                negll = lax.pmean(negll, axis)
-                grads = lax.pmean(grads, axis)
-            updates, opt_state = optimizer.update(grads, opt_state, flow)
-            flow = optax.apply_updates(flow, updates)
-            flow = flow.canonicalize()
-            return (flow, opt_state), negll
-    elif use_fused_coupling:
-        step = make_train_step(optimizer,
-                               loss_fn=mvnormal_negll_coupling,
-                               axis_name=axis)
-    else:
-        step = make_train_step(optimizer)
+    if mesh is not None and batch_size % mesh.shape[batch_axis]:
+        raise ValueError(
+            f"batch size {batch_size} (n//nbatches) must divide over "
+            f"{mesh.shape[batch_axis]} '{batch_axis}' shards")
+    step = make_train_step(optimizer)
 
     if metrics is not None:
         inner_step = step
@@ -245,8 +133,6 @@ def optimize_whitening(
         def step(carry, xs):
             i, X = xs
             carry, negll = inner_step(carry, X)
-            # Under the shard_map'd fused path the callback fires once
-            # per shard with the identical post-pmean value.
             metrics.from_jit(i, negll=negll)
             return carry, negll
 
@@ -269,24 +155,9 @@ def optimize_whitening(
                     epoch, (flow, opt_state), e0 + jnp.arange(ne))
             return flow, opt_state, neglls.reshape(-1)
 
-        if axis is not None:
-            # Fused kernels under the mesh: each shard scans its LOCAL
-            # batch block through the pallas kernel; consensus is the
-            # pmean inside `step`. The packed layout is row-major
-            # (sample-major), so a contiguous split of the flat
-            # (batch_size * dp) axis IS a batch shard; the coupling path
-            # shards the (batch, dim) rows directly.
-            return jax.jit(jax.shard_map(
-                run_body, mesh=mesh, in_specs=(P(), P(), P(), bspec),
-                out_specs=(P(), P(), P()), check_vma=False))
         return jax.jit(run_body)
 
-    bspec = None
-    if axis is not None:
-        bspec = P(None, batch_axis) if use_fused \
-            else P(None, batch_axis, None)
-        batches = jax.device_put(batches, NamedSharding(mesh, bspec))
-    elif mesh is not None:
+    if mesh is not None:
         batches = jax.device_put(
             batches, NamedSharding(mesh, P(None, batch_axis, None)))
 

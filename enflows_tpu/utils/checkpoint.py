@@ -29,11 +29,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    import orbax.checkpoint as ocp
-    _HAS_ORBAX = True
-except Exception:            # pragma: no cover
-    _HAS_ORBAX = False
+
+def _orbax():
+    """orbax.checkpoint if installed, else None. Imported on first use, so
+    the package never needs it."""
+    try:
+        import orbax.checkpoint as ocp
+    except Exception:        # pragma: no cover
+        return None
+    return ocp
 
 
 def _is_cross_device_sharded(leaf: Any) -> bool:
@@ -61,7 +65,8 @@ def save_checkpoint(path: str, pytree: Any, step: int = 0,
     proc = jax.process_index()
     if proc == 0:
         os.makedirs(path, exist_ok=True)
-    if use_orbax and _HAS_ORBAX:
+    ocp = _orbax() if use_orbax else None
+    if ocp is not None:
         if proc != 0 and jax.process_count() > 1:  # pragma: no cover
             pass  # orbax coordinates all processes internally
         ckpt = ocp.StandardCheckpointer()
@@ -115,7 +120,8 @@ def restore_checkpoint(path: str, like: Any, step: int = 0,
     structure and, for sharded leaves, the target sharding (its leaves must
     carry the original ``NamedSharding``, e.g. the freshly-initialized
     state of a resuming run)."""
-    if use_orbax and _HAS_ORBAX:
+    ocp = _orbax() if use_orbax else None
+    if ocp is not None:
         ckpt = ocp.StandardCheckpointer()
         target = os.path.join(os.path.abspath(path), f"step_{step}")
         return ckpt.restore(target, like)

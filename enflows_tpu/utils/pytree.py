@@ -1,6 +1,6 @@
 """Pytree-registered dataclasses for bijectors and inference state.
 
-TPU-native replacement for the reference's Functors.jl `@functor` mechanism
+Replacement for the reference's Functors.jl `@functor` mechanism
 (see /root/reference/src/EuclidianNormalizingFlows.jl:38-40): every bijector
 and state object is a frozen dataclass registered as a JAX pytree so that
 `jax.jit` / `jax.grad` / optax / shardings traverse its parameters natively.

@@ -21,10 +21,6 @@ it end to end, the mode-covering way:
    it refits the whitening transport and samples the preconditioned
    banana with NUTS — posterior moments match the data.
 
-On TPU the stack evaluates through the fused whole-stack Pallas kernel
-(ops/pallas/coupling.py; BASELINE.md "Coupling tier") in the trainer's
-auto-dispatched hot loop.
-
 Run: python examples/coupling_conditional_2d.py
 """
 import os

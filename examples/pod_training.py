@@ -1,22 +1,18 @@
 """North-star workload: data-parallel, preemption-safe flow training.
 
-Composes the round-5 capabilities into the deployment shape the framework
-targets (BASELINE.json north star — pod-scale training):
+Composes the trainers' capabilities into the deployment shape the
+framework targets:
 
-1. a COUPLING-stack whitening fit whose train step auto-dispatches to the
-   fused Pallas kernels (forward AND recompute-in-VMEM backward) when the
-   per-shard batch clears the measured crossover
-   (`ops.pallas.coupling.coupling_train_dispatch_min_elements`);
-2. the whole train scan running INSIDE `jax.shard_map` over a
-   data-parallel ``batch`` mesh axis — each shard pushes its local block
-   through the kernel, loss/grads are pmean'd, params stay replicated;
+1. a COUPLING-stack whitening fit;
+2. data parallelism over a ``batch`` mesh axis — batches sharded, params
+   replicated, the gradient psum inserted by XLA from the shardings;
 3. preemption safety: `checkpoint_every=` chunks the scan through
    `utils.resilience.run_checkpointed`, so a SIGKILLed job restarted with
    the SAME call resumes bit-identically (demonstrated below by a second
    call that resumes instead of retraining).
 
-On a pod slice, point `parallel.make_mesh({"batch": jax.device_count()})`
-at the real devices; this script runs anywhere (single chip, or the
+On a multi-GPU host, `parallel.make_mesh({"batch": jax.device_count()})`
+spans the cards; this script runs anywhere (one card, or the
 8-virtual-device CPU mesh via
 `XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu`).
 

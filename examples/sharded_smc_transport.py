@@ -6,7 +6,7 @@ inside the shard_map temperature step (psum'd gradients, replicated flow
 parameters), AFT-corrected incremental weights, distributed systematic
 resampling, and HMC mutations with cross-shard step-size consensus.
 
-Runs anywhere: on a TPU pod slice the mesh spans real chips; on CPU it
+Runs anywhere: on a multi-GPU host the mesh spans the cards; on CPU it
 uses 8 simulated devices (set before jax import, as below). The target is
 a 2D bimodal mixture — tempering + transports cross the density gap and
 the mode balance comes out ~50/50 with a calibrated log Z.

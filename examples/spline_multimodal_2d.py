@@ -30,10 +30,6 @@ equal-size affine stack (measurably):
    estimator's variance advantage is largest.) Check both modes stay
    covered and the nELBO tail is tight.
 
-On TPU both trainers auto-dispatch through the fused whole-stack Pallas
-kernel's spline leg (ops/pallas/coupling.py; BASELINE.md
-"Rational-quadratic SPLINE couplings": 2.3-2.5x over the XLA path).
-
 Run: python examples/spline_multimodal_2d.py
 """
 import os

@@ -94,7 +94,8 @@ def test_chees_deterministic():
 
 def test_chees_ess_competitive_on_correlated_gaussian():
     """ChEES should achieve healthy per-sample ESS (its value prop is
-    wall-clock on TPU; here we gate statistical efficiency per draw)."""
+    wall-clock on an accelerator; here we gate statistical efficiency per
+    draw)."""
     rho = 0.9
     cov = jnp.asarray([[1.0, rho], [rho, 1.0]], jnp.float64)
     samples, _, _ = chees_sample(

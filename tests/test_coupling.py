@@ -131,134 +131,96 @@ def _perturbed_stack(key, dim, n_layers=3, hidden=(32, 32), **kw):
             jax.random.PRNGKey(p.size % 97), p.shape, p.dtype), stack)
 
 
+def _f64_tree(tree):
+    return jax.tree.map(lambda p: p.astype(jnp.float64), tree)
+
+
 @pytest.mark.parametrize("dim", [4, 8, 64])
-def test_fused_coupling_kernel_matches_jnp(dim):
-    """The whole-stack fused kernel (ops.pallas.coupling, interpret mode
-    on CPU) matches the jnp path in value, ladj, gradient, and the
-    permute-absorption bookkeeping (logical output order)."""
-    from enflows_tpu.ops.pallas.coupling import (
-        fused_coupling_forward_and_ladj, is_fusible_coupling_stack)
-
+def test_coupling_stack_roundtrip_and_ladj(dim):
+    """Perturbed 3-layer stack: the exact inverse undoes the forward, its
+    ladj is the negated forward ladj, and the ladj equals log|det J| of
+    the AD Jacobian (f64)."""
     stack = _perturbed_stack(dim, dim)
-    assert is_fusible_coupling_stack(stack, dim)
     x = jax.random.normal(jax.random.PRNGKey(1), (200, dim), jnp.float32)
-    y1, l1 = stack.forward_and_ladj(x)
-    y2, l2 = fused_coupling_forward_and_ladj(stack, x)
-    np.testing.assert_allclose(np.asarray(y2), np.asarray(y1),
-                               rtol=3e-5, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(l2), np.asarray(l1),
-                               rtol=3e-4, atol=3e-4)
-
-    def loss_f(c):
-        y, l = fused_coupling_forward_and_ladj(c, x)
-        return jnp.sum(jnp.sin(y)) + jnp.sum(l)
-
-    def loss_r(c):
-        y, l = c.forward_and_ladj(x)
-        return jnp.sum(jnp.sin(y)) + jnp.sum(l)
-
-    gf = jax.grad(loss_f)(stack)
-    gr = jax.grad(loss_r)(stack)
-    for a, b in zip(jax.tree.leaves(gf), jax.tree.leaves(gr)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=2e-4)
-
-
-def test_fused_coupling_kernel_inverse_roundtrip():
-    """forward and inverse BOTH through the kernel: exact round trip (the
-    inverse recomputes the identical conditioner in-kernel) and negated
-    ladj."""
-    from enflows_tpu.ops.pallas.coupling import (
-        fused_coupling_forward_and_ladj)
-
-    stack = _perturbed_stack(5, 8)
-    x = jax.random.normal(jax.random.PRNGKey(2), (64, 8), jnp.float32)
-    y, l = fused_coupling_forward_and_ladj(stack, x)
-    xb, lb = fused_coupling_forward_and_ladj(stack.inverse(), y)
+    y, ladj = stack.forward_and_ladj(x)
+    xb, ladj_b = stack.inverse().forward_and_ladj(y)
     np.testing.assert_allclose(np.asarray(xb), np.asarray(x),
                                rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(lb), -np.asarray(l),
+    np.testing.assert_allclose(np.asarray(ladj_b), -np.asarray(ladj),
                                rtol=1e-4, atol=1e-4)
 
-
-def test_fused_coupling_template_with_elementwise_stages():
-    """coupling_flow_template chains (ScaleShift/JohnsonInv wrappers
-    around the stack) fuse whole: elementwise stages run in-kernel with
-    permutation-mapped pattern rows."""
-    from enflows_tpu.infer import coupling_flow_template
-    from enflows_tpu.ops.pallas.coupling import (
-        fused_coupling_forward_and_ladj, is_fusible_coupling_stack)
-
-    dim = 6
-    tmpl = coupling_flow_template(3, (16, 16))(dim, jax.random.PRNGKey(3))
-    tmpl = jax.tree.map(
-        lambda p: p + 0.03 * jax.random.normal(
-            jax.random.PRNGKey(p.size % 89), p.shape, p.dtype), tmpl)
-    assert is_fusible_coupling_stack(tmpl, dim)
-    x = jax.random.normal(jax.random.PRNGKey(4), (77, dim), jnp.float32)
-    y1, l1 = tmpl.forward_and_ladj(x)
-    y2, l2 = fused_coupling_forward_and_ladj(tmpl, x)
-    np.testing.assert_allclose(np.asarray(y2), np.asarray(y1),
-                               rtol=3e-5, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(l2), np.asarray(l1),
-                               rtol=3e-4, atol=3e-4)
+    s64 = _f64_tree(stack)
+    x64 = x[:8].astype(jnp.float64)
+    jac = jax.vmap(jax.jacfwd(s64.forward))(x64)
+    _, logdet = np.linalg.slogdet(np.asarray(jac))
+    _, l64 = s64.forward_and_ladj(x64)
+    np.testing.assert_allclose(np.asarray(l64), logdet, rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(np.asarray(ladj[:8]), logdet, rtol=1e-4,
+                               atol=1e-4)
 
 
-def test_fused_coupling_fallbacks():
-    """Odd dims, non-half-preserving permutes, and oversized conditioners
-    fall back to the jnp path bitwise."""
-    from enflows_tpu.bijectors import Permute
-    from enflows_tpu.ops.pallas.coupling import (
-        fused_coupling_forward_and_ladj, is_fusible_coupling_stack)
+@pytest.mark.parametrize("dim", [4, 8, 64])
+def test_coupling_stack_gradients_f32_match_f64(dim):
+    """Parameter and input gradients of a loss through the f32 stack match
+    the same loss evaluated in f64, and the f64 gradient matches a central
+    finite difference along a random parameter direction."""
+    stack = _perturbed_stack(dim, dim)
+    x = jax.random.normal(jax.random.PRNGKey(2), (64, dim), jnp.float32)
 
-    # Odd dim.
-    s5 = coupling_stack(jax.random.PRNGKey(5), 5, n_layers=2,
-                        hidden=(8, 8))
-    assert not is_fusible_coupling_stack(s5, 5)
-    x5 = jax.random.normal(jax.random.PRNGKey(6), (10, 5), jnp.float32)
-    ya, la = fused_coupling_forward_and_ladj(s5, x5)
-    yb, lb = s5.forward_and_ladj(x5)
-    np.testing.assert_array_equal(np.asarray(ya), np.asarray(yb))
+    def loss(c, u):
+        y, l = c.forward_and_ladj(u)
+        return jnp.sum(jnp.sin(y)) + jnp.sum(l)
 
-    # A permute that mixes halves.
-    mix = Permute(perm=(0, 4, 2, 6, 1, 5, 3, 7))
-    s8 = _perturbed_stack(7, 8, n_layers=1)
-    mixed = ef.Chain.of(mix, *s8.stages)
-    assert not is_fusible_coupling_stack(mixed, 8)
-
-
-def test_whitening_trainer_coupling_dispatch_matches_std():
-    """optimize_whitening's fused coupling loss (VERDICT r3 next #1
-    wiring; auto-dispatched on TPU, use_fused="coupling" forces it on any
-    backend) converges to the same result as the explicit jnp path."""
-    import optax
-    from enflows_tpu.train import optimize_whitening
-
-    dim = 8
-    key = jax.random.PRNGKey(8)
-    A = jax.random.normal(key, (dim, dim), jnp.float32) * 0.3 \
-        + jnp.eye(dim, dtype=jnp.float32)
-    X = jax.random.normal(jax.random.fold_in(key, 1), (8192, dim),
-                          jnp.float32) @ A.T
-    stack = coupling_stack(jax.random.fold_in(key, 2), dim,
-                           n_layers=2, hidden=(16, 16))
-    r_auto = optimize_whitening(X, stack, optax.adam(3e-3),
-                                nbatches=2, nepochs=3,
-                                use_fused="coupling")
-    r_std = optimize_whitening(X, stack, optax.adam(3e-3),
-                               nbatches=2, nepochs=3, use_fused=False)
-    np.testing.assert_allclose(np.asarray(r_auto.negll_history),
-                               np.asarray(r_std.negll_history),
-                               rtol=2e-4, atol=2e-4)
-    for a, b in zip(jax.tree.leaves(r_auto.result),
-                    jax.tree.leaves(r_std.result)):
+    g32 = jax.grad(loss, argnums=(0, 1))(stack, x)
+    s64, x64 = _f64_tree(stack), x.astype(jnp.float64)
+    g64 = jax.grad(loss, argnums=(0, 1))(s64, x64)
+    for a, b in zip(jax.tree.leaves(g32), jax.tree.leaves(g64)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-3, atol=2e-4)
+                                   rtol=2e-3, atol=2e-3)
+
+    leaves, treedef = jax.tree.flatten(s64)
+    keys = jax.random.split(jax.random.PRNGKey(3), len(leaves))
+    dirs = [jax.random.normal(k, p.shape, p.dtype)
+            for k, p in zip(keys, leaves)]
+    h = 1e-6
+    shifted = lambda sgn: jax.tree.unflatten(
+        treedef, [p + sgn * h * d for p, d in zip(leaves, dirs)])
+    fd = (loss(shifted(1.0), x64) - loss(shifted(-1.0), x64)) / (2 * h)
+    ad = sum(jnp.vdot(g, d) for g, d in zip(jax.tree.leaves(g64[0]), dirs))
+    np.testing.assert_allclose(float(ad), float(fd), rtol=1e-6)
 
 
-def test_vi_trainer_coupling_dispatch_runs():
-    """optimize_elbo's fused coupling route (auto on TPU;
-    use_fused_coupling=True forces it here) still fits the target."""
+def test_coupling_bf16_conditioner_invertibility():
+    """compute_dtype='bfloat16' conditioner: forward/inverse round trip is
+    EXACT up to f32 io rounding (the inverse recomputes the identical
+    conditioner), and the ladj is consistent with the realized map."""
+    key = jax.random.PRNGKey(11)
+    dim = 8
+    stack16 = coupling_stack(key, dim, n_layers=2, hidden=(32, 32),
+                             compute_dtype="bfloat16")
+    # Perturb weights so the map is non-trivial (identity init otherwise).
+    stack16 = jax.tree.map(
+        lambda p: p + 0.05 * jax.random.normal(
+            jax.random.PRNGKey(p.shape[0] if p.ndim else 0), p.shape,
+            p.dtype), stack16)
+    x = jax.random.normal(jax.random.fold_in(key, 2), (64, dim),
+                          jnp.float32)
+    y, ladj = stack16.forward_and_ladj(x)
+    x_rt = stack16.inverse().forward(y)
+    np.testing.assert_allclose(np.asarray(x_rt), np.asarray(x),
+                               rtol=1e-5, atol=1e-5)
+    # ladj consistency: AD jacobian of the realized bf16-conditioned map
+    # (AD tangents through bf16 matmuls carry ~0.4% noise themselves).
+    jac = jax.vmap(jax.jacfwd(lambda v: stack16.forward(v)))(x[:8])
+    sign, logdet = np.linalg.slogdet(np.asarray(jac, np.float64))
+    np.testing.assert_allclose(np.asarray(ladj[:8]), logdet,
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_vi_trainer_coupling_stack_fits_target():
+    """optimize_elbo on a coupling-stack transport fits a shifted
+    Gaussian target."""
     import optax
     from enflows_tpu.train import optimize_elbo
 
@@ -277,43 +239,9 @@ def test_vi_trainer_coupling_dispatch_runs():
                        *stack.stages)
     res = optimize_elbo(logp, flow, optax.adam(1e-2), dim=dim,
                         batch_size=256, nsteps=300,
-                        key=jax.random.PRNGKey(10),
-                        use_fused_coupling=True)
+                        key=jax.random.PRNGKey(10))
     z = res.result.forward(
         jax.random.normal(jax.random.PRNGKey(11), (20000, dim),
                           jnp.float32))
     np.testing.assert_allclose(np.asarray(z).mean(0), np.asarray(mean),
                                atol=0.15)
-
-
-def test_pick_tile_big_weights_second_tier():
-    """Chains whose weights exceed the default scoped-VMEM budget get the
-    raised-vmem tier (round 5) instead of the jnp fallback; truly huge
-    chains still decline."""
-    import numpy as np
-    from enflows_tpu.ops.pallas.coupling import (_pick_tile, _stack_plan,
-                                                 _VMEM_BUDGET)
-
-    big = coupling_stack(jax.random.PRNGKey(0), 64, n_layers=4,
-                         hidden=(1024, 1024))
-    with jax.ensure_compile_time_eval():
-        plan, params, _ = _stack_plan(big, 64)
-        wbytes = sum(int(np.prod(p.shape)) * 4 for p in params)
-        assert wbytes > _VMEM_BUDGET          # really is a tier-2 case
-        picked = _pick_tile(params, 64, plan)
-    assert picked is not None
-    tile, vmem = picked
-    assert tile >= 64 and vmem is not None    # raised-limit tier
-
-    small = coupling_stack(jax.random.PRNGKey(0), 8, n_layers=2,
-                           hidden=(16, 16))
-    with jax.ensure_compile_time_eval():
-        plan_s, params_s, _ = _stack_plan(small, 8)
-        tile_s, vmem_s = _pick_tile(params_s, 8, plan_s)
-    assert vmem_s is None                     # default tier unchanged
-
-    huge = coupling_stack(jax.random.PRNGKey(0), 64, n_layers=6,
-                          hidden=(2048, 2048))
-    with jax.ensure_compile_time_eval():
-        plan_h, params_h, _ = _stack_plan(huge, 64)
-        assert _pick_tile(params_h, 64, plan_h) is None

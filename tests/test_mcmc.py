@@ -284,34 +284,3 @@ def test_nuts_deterministic_given_key():
     s2, _, _ = sample(logp, jax.random.PRNGKey(7), dim=2, num_chains=2,
                       num_warmup=100, num_samples=50, dtype=DT)
     np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
-
-
-def test_pushforward_batched_value_and_grad_matches_ad():
-    """FlowPushforwardTarget.batched_value_and_grad (the TPU fused
-    gradient route for tree samplers — auto-wired on TPU only) matches
-    per-chain AD of the target, both vmapped and unbatched."""
-    import enflows_tpu as ef
-    from enflows_tpu.mcmc import FlowPushforwardTarget
-
-    d = 3
-    v = lambda val: jnp.full((d,), val, jnp.float32)
-    transport = ef.compose(
-        ef.ScaleShift(a=jnp.asarray([2.0, 0.5, 1.5], jnp.float32),
-                      b=v(0.2)),
-        ef.invert(ef.Johnson(gamma=v(0.0), delta=v(5.0), xi=v(0.0),
-                             lam=v(5.0))),
-    )
-    target = FlowPushforwardTarget(transport, base_mean=v(0.3),
-                                   base_var=v(1.2))
-    vg = target.batched_value_and_grad(d)
-    assert vg is not None
-    q = jax.random.normal(jax.random.PRNGKey(0), (16, d), jnp.float32)
-    lp_b, g_b = jax.vmap(vg)(q)
-    lp_r, g_r = jax.vmap(jax.value_and_grad(target.__call__))(q)
-    np.testing.assert_allclose(np.asarray(lp_b), np.asarray(lp_r),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(g_b), np.asarray(g_r),
-                               rtol=2e-4, atol=2e-4)
-    # Unbatched call falls through to the plain per-sample path.
-    lp1, g1 = vg(q[0])
-    np.testing.assert_allclose(float(lp1), float(lp_r[0]), rtol=1e-5)

@@ -1,6 +1,6 @@
 """Multi-chip sharding tests on the 8-device simulated CPU mesh.
 
-The TPU-native test strategy from SURVEY.md §4: collectives (psum step-size
+The test strategy from SURVEY.md §4: collectives (psum step-size
 consensus, distributed resampling, sharded moment accumulation) validated
 with `--xla_force_host_platform_device_count=8` and `shard_map`, no pod
 needed. Correctness gates compare sharded results against the single-device
@@ -407,11 +407,9 @@ def test_build_sharded_smc_step_no_retrace(mesh):
 
 
 # ------------------------------------------------------------------
-# Fused kernels UNDER the mesh (VERDICT r4 next #1): the trainers keep
-# pallas-kernel dispatch when a batch-sharded mesh is passed — each shard
-# runs the kernel on its local block inside shard_map, loss/grads pmean.
-# Equivalence gates vs the unsharded fused runs; replication of the
-# consensus outputs is machine-checked (VERDICT r4 next #6).
+# The trainers under a batch-sharded mesh: batches sharded, params
+# replicated, gradient psum inserted by XLA. Equivalence gates vs the
+# unsharded runs; replication of the outputs is machine-checked.
 
 def _assert_tree_replicated(tree, name):
     from enflows_tpu.utils import assert_replicated_consistent
@@ -419,7 +417,8 @@ def _assert_tree_replicated(tree, name):
         assert_replicated_consistent(leaf, f"{name}[{i}]")
 
 
-def test_whitening_fused_packed_sharded_matches_unsharded():
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_whitening_elementwise_sharded_matches_unsharded(n_shards):
     import optax
     from enflows_tpu import ScaleShift, Johnson, compose
     from enflows_tpu.train import optimize_whitening
@@ -430,11 +429,12 @@ def test_whitening_fused_packed_sharded_matches_unsharded():
                 xi=jnp.zeros(2, F), lam=5.0 * jnp.ones(2, F)),
         ScaleShift(a=jnp.ones(2, F), b=jnp.zeros(2, F)))
     X = 1.5 * jax.random.normal(jax.random.PRNGKey(3), (4096, 2), F)
-    m = make_mesh({"batch": 8}, axis_name="batch")
+    m = make_mesh({"batch": n_shards}, devices=jax.devices()[:n_shards],
+                  axis_name="batch")
     r_sh = optimize_whitening(X, flow, optax.adagrad(0.05), nbatches=4,
-                              nepochs=2, use_fused=True, mesh=m)
+                              nepochs=2, mesh=m)
     r_un = optimize_whitening(X, flow, optax.adagrad(0.05), nbatches=4,
-                              nepochs=2, use_fused=True)
+                              nepochs=2)
     np.testing.assert_allclose(np.asarray(r_sh.negll_history),
                                np.asarray(r_un.negll_history),
                                rtol=2e-5, atol=2e-6)
@@ -442,13 +442,12 @@ def test_whitening_fused_packed_sharded_matches_unsharded():
                     jax.tree.leaves(r_un.result)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=2e-4, atol=1e-5)
-    # The shard_map out_specs declare the trained flow replicated
-    # (check_vma=False) — machine-check it, don't trust it.
+    # The trained flow must come back replicated — machine-check it.
     _assert_tree_replicated(r_sh.result, "whitening.flow")
     _assert_tree_replicated(r_sh.negll_history, "whitening.history")
 
 
-def test_whitening_fused_coupling_sharded_matches_unsharded():
+def test_whitening_coupling_sharded_matches_unsharded():
     import optax
     from enflows_tpu.bijectors import coupling_stack
     from enflows_tpu.train import optimize_whitening
@@ -460,9 +459,9 @@ def test_whitening_fused_coupling_sharded_matches_unsharded():
                            n_layers=2, hidden=(8, 8))
     m = make_mesh({"batch": 8}, axis_name="batch")
     r_sh = optimize_whitening(X, stack, optax.adam(3e-3), nbatches=2,
-                              nepochs=2, use_fused="coupling", mesh=m)
+                              nepochs=2, mesh=m)
     r_un = optimize_whitening(X, stack, optax.adam(3e-3), nbatches=2,
-                              nepochs=2, use_fused="coupling")
+                              nepochs=2)
     np.testing.assert_allclose(np.asarray(r_sh.negll_history),
                                np.asarray(r_un.negll_history),
                                rtol=2e-5, atol=2e-6)
@@ -473,7 +472,7 @@ def test_whitening_fused_coupling_sharded_matches_unsharded():
     _assert_tree_replicated(r_sh.result, "whitening.coupling.flow")
 
 
-def test_vi_fused_coupling_sharded_matches_unsharded():
+def test_vi_coupling_sharded_matches_unsharded():
     import optax
     from enflows_tpu.bijectors import coupling_stack
     from enflows_tpu.train import optimize_elbo
@@ -484,7 +483,7 @@ def test_vi_fused_coupling_sharded_matches_unsharded():
     logp = lambda z: -0.5 * jnp.sum((z - 1.0) ** 2, axis=-1)
     m = make_mesh({"batch": 8}, axis_name="batch")
     kw = dict(dim=dim, batch_size=128, nsteps=3,
-              optimizer=optax.adam(3e-3), use_fused_coupling=True)
+              optimizer=optax.adam(3e-3))
     r_sh = optimize_elbo(logp, flow, mesh=m, **kw)
     r_un = optimize_elbo(logp, flow, **kw)
     np.testing.assert_allclose(np.asarray(r_sh.nelbo_history),
@@ -497,7 +496,7 @@ def test_vi_fused_coupling_sharded_matches_unsharded():
     _assert_tree_replicated(r_sh.result, "vi.flow")
 
     # STL under the mesh: the scale-corrected history still matches the
-    # unsharded fused STL run (correction is linear, pmean after).
+    # unsharded STL run.
     r_sh2 = optimize_elbo(logp, flow, mesh=m, stl=True, **kw)
     r_un2 = optimize_elbo(logp, flow, stl=True, **kw)
     np.testing.assert_allclose(np.asarray(r_sh2.nelbo_history),

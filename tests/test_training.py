@@ -154,16 +154,12 @@ def test_negll_batch_size_independent():
     np.testing.assert_allclose(a, b, rtol=1e-12)
 
 
-def test_whitening_mid_dim_fused_dispatch():
-    """d=16 sits inside the round-3 packed-dispatch window
-    (PACKED_WIN_MAX_DIM=64): the trainer must route through the
-    single-pass negll+grad kernel (padding hoisted) and still converge to
-    the analytic optimum on a linearly-warped Gaussian."""
+def test_whitening_mid_dim_converges():
+    """d=16 with 1000-row batches: the trainer converges to the analytic
+    optimum on a linearly-warped Gaussian."""
     import enflows_tpu as ef
-    from enflows_tpu.ops.pallas.elementwise import PACKED_WIN_MAX_DIM
 
     dim = 16
-    assert dim <= PACKED_WIN_MAX_DIM
     key = jax.random.PRNGKey(0)
     scale = jnp.linspace(0.5, 2.0, dim).astype(jnp.float32)
     shift = jnp.linspace(-1.0, 1.0, dim).astype(jnp.float32)
